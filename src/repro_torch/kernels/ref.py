@@ -1,0 +1,11 @@
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
+
+These define the semantics the kernels must match bit for bit; each lives
+beside its kernel wrapper and is re-exported here under the reference's
+oracle name.
+"""
+from __future__ import annotations
+
+from .fused_slice import fused_primitive_plain as fused_primitive_ref
+
+__all__ = ["fused_primitive_ref"]

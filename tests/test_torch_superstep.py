@@ -1,0 +1,262 @@
+"""One superstep, port against reference, leaf by leaf and bitwise.
+
+States are taken mid-run from the reference (``repro``) sim daemon stepped
+by hand (``rank_superstep`` under ``vmap`` + ``_sim_exchange``, the
+recipe of ``.claude/skills/verify/SKILL.md``), carried into the port with
+``state_from_numpy`` / ``tables_from_numpy``, and advanced by one port
+``rank_superstep`` over all ranks at once.  Every leaf of the resulting
+state and of the outbox must equal the reference's bit for bit.
+
+The sweep covers burst widths 1 and 4, the flight recorder on and off (and
+a ring shorter than one superstep's events), FIFO and PRIORITY with
+preemption and aging, the stickiness / demand-steering / stall-weight
+ablations, every reduce op and a bfloat16 heap.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import CollKind, OcclConfig, OcclRuntime, OrderPolicy, ReduceOp
+from repro.core import daemon as jdaemon
+from repro.core.scheduler import rank_superstep as j_rank_superstep
+from repro_torch.core import OcclConfig as TConfig
+from repro_torch.core import daemon as tdaemon
+from repro_torch.core import state_from_numpy, state_to_numpy, tables_from_numpy
+from repro_torch.core.scheduler import Mailbox as TMailbox
+from repro_torch.core.scheduler import rank_superstep as t_rank_superstep
+
+pytestmark = pytest.mark.filterwarnings("ignore::UserWarning")
+
+CONFIGS = {
+    "b1_fr": dict(burst_slices=1, flight_recorder=True),
+    "b4_nofr": dict(burst_slices=4, flight_recorder=False),
+    "b4_prio": dict(burst_slices=4, order_policy=OrderPolicy.PRIORITY,
+                    priority_preempts=True, prio_aging_quantum=3,
+                    prio_aging_cap=5),
+    "b1_ablate": dict(burst_slices=1, stickiness=False,
+                      demand_steering=False, queue_conditional_stall=False,
+                      recorder_len=3),
+    "b4_bf16": dict(burst_slices=4, dtype="bfloat16",
+                    queue_conditional_stall=False),
+}
+CAPTURE = (0, 3, 7, 12, 18, 25, 33, 42)
+R = 4
+
+
+def _workload(cfg_kw):
+    """A reference runtime with six collectives on two lanes, submitted in
+    seeded per-rank orders (priorities random), flushed and packed."""
+    kw = dict(n_ranks=R, max_colls=6, max_comms=2, slice_elems=4,
+              conn_depth=5, heap_elems=1 << 12, cq_len=8,
+              superstep_budget=1 << 12)
+    kw.update(cfg_kw)
+    cfg = OcclConfig(**kw)
+    rt = OcclRuntime(cfg)
+    a = rt.communicator(range(R))
+    b = rt.communicator(range(1, R))
+    regs = [(CollKind.ALL_REDUCE, a, 40, ReduceOp.SUM, 0),
+            (CollKind.ALL_GATHER, a, 24, ReduceOp.SUM, 0),
+            (CollKind.BROADCAST, a, 30, ReduceOp.SUM, 1),
+            (CollKind.REDUCE_SCATTER, b, 33, ReduceOp.MIN, 0),
+            (CollKind.REDUCE, b, 21, ReduceOp.PROD, 2),
+            (CollKind.ALL_REDUCE, b, 17, ReduceOp.MAX, 0)]
+    ids = [rt.register(k, c, n, op=op, root=root)
+           for k, c, n, op, root in regs]
+    rng = np.random.RandomState(5)
+    for r in range(R):
+        for i in rng.permutation(len(ids)):
+            spec = rt.specs[ids[i]]
+            if r not in spec.comm.members:
+                continue
+            rt._ensure_built()
+            n = int(rt._tables.in_log[ids[i]])
+            rt.submit(r, ids[i], prio=int(rng.randint(-3, 4)),
+                      data=rng.randn(n).astype(np.float32))
+    rt._flush_staged()
+    return cfg, kw, rt
+
+
+def _np_tree(t):
+    return {k: np.array(v) for k, v in t._asdict().items()}
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    if str(a.dtype) == "bfloat16":
+        return a.view(np.uint16)
+    if a.dtype == np.float32:
+        return a.view(np.uint32)
+    return a
+
+
+def _assert_leaves_equal(got: dict, want: dict, what: str):
+    assert set(got) == set(want)
+    for f in want:
+        w = _bits(want[f])
+        g = _bits(got[f])
+        assert g.shape == w.shape, (what, f)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}: {f}")
+
+
+def _chain_workload():
+    """A composite two-level all-reduce (a device-chained stage sequence on
+    derived lanes) beside a flat all-gather, registered on the reference.
+    The port registers flat rings only, but its scheduler runs the chain
+    hand-off logic on tables carried across with ``tables_from_numpy``."""
+    kw = dict(n_ranks=R, max_colls=6, max_comms=3, slice_elems=4,
+              conn_depth=5, heap_elems=1 << 12, cq_len=8, burst_slices=2,
+              superstep_budget=1 << 12)
+    cfg = OcclConfig(**kw)
+    rt = OcclRuntime(cfg)
+    two = rt.register(CollKind.ALL_REDUCE, rt.logical_communicator(range(R)),
+                      40, algo="two_level", hierarchy=(2, 2))
+    flat = rt.register(CollKind.ALL_GATHER, rt.communicator(range(R)), 24)
+    rt._ensure_built()
+    rng = np.random.RandomState(9)
+    for r in range(R):
+        for c in ([two, flat] if r % 2 else [flat, two]):
+            n = int(rt._tables.in_log[c])
+            rt.submit(r, c, data=rng.randn(n).astype(np.float32))
+    rt._flush_staged()
+    return cfg, kw, rt
+
+
+@functools.lru_cache(maxsize=None)
+def _captured(name):
+    """[(state, inbox, next_state, outbox)] numpy snapshots from the
+    reference, at the CAPTURE supersteps of one launch."""
+    cfg, kw, rt = (_chain_workload() if name == "chain"
+                   else _workload(CONFIGS[name]))
+    t = rt._tables
+    sh, lt = jdaemon.shared_tables(t), jdaemon.local_tables(t)
+    fwd, rev = jnp.asarray(t.fwd_src), jnp.asarray(t.rev_src)
+    step = jax.jit(jax.vmap(
+        functools.partial(j_rank_superstep, cfg, sh, defer_relink=True),
+        in_axes=(0, 0, 0)))
+    st = jdaemon.launch_prologue(rt.queues.pack_sq(rt.state))
+    inbox = jdaemon._load_mailbox(st)
+    out = []
+    # Every superstep of the chain workload up to its last hand-off, so
+    # the sweep includes the supersteps where chained stages complete.
+    capture = range(26) if name == "chain" else CAPTURE
+    for i in range(max(capture) + 1):
+        nst, outbox = step(lt, st, inbox)
+        if i in capture:
+            out.append((_np_tree(st), _np_tree(inbox), _np_tree(nst),
+                        _np_tree(outbox)))
+        st, inbox = nst, jdaemon._sim_exchange(fwd, rev, outbox)
+    return kw, t, out
+
+
+@pytest.mark.parametrize("name", list(CONFIGS) + ["chain"])
+def test_one_superstep_matches_reference_leaf_by_leaf(name):
+    kw, t, snaps = _captured(name)
+    cfg = TConfig(**kw)
+    sh, lt, _, _ = tables_from_numpy(t, "cpu")
+    moved = handoffs = 0
+    assert t.has_chains == (name == "chain")
+    for k, (st, inbox, want_st, want_out) in enumerate(snaps):
+        tst = state_from_numpy(st, cfg, "cpu")
+        tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
+        got_st, got_out = t_rank_superstep(cfg, sh, lt, tst, tin)
+        _assert_leaves_equal(state_to_numpy(got_st), want_st,
+                             f"{name} capture {k} state")
+        got_out = {f: (v.view(torch.int16).numpy().view(np.uint16)
+                       if v.dtype == torch.bfloat16 else v.numpy())
+                   for f, v in got_out._asdict().items()}
+        _assert_leaves_equal(got_out, want_out,
+                             f"{name} capture {k} outbox")
+        moved += int(want_out["fwd_count"].sum())
+        handoffs += int((want_st["fr_kinds"] - st["fr_kinds"])[:, 3].sum())
+    assert moved > 0            # the sweep saw real traffic
+    if name == "chain":
+        assert handoffs > 0     # ... and on-device chain hand-offs
+
+
+@pytest.mark.parametrize("name", ["b4_prio", "b1_fr"])
+def test_launch_prologue_matches_reference(name):
+    kw, t, snaps = _captured(name)
+    cfg = TConfig(**kw)
+    for st, _, _, _ in snaps:
+        want = _np_tree(jdaemon.launch_prologue(
+            jax.tree_util.tree_map(jnp.asarray, _as_jstate(st))))
+        got = state_to_numpy(tdaemon.launch_prologue(
+            state_from_numpy(st, cfg, "cpu")))
+        _assert_leaves_equal(got, want, f"{name} prologue")
+
+
+def _as_jstate(d):
+    from repro.core.state import DaemonState
+    return DaemonState(**d)
+
+
+def test_not_live_body_changes_no_leaf():
+    """A superstep body run after the fabric went not-live (the tail of a
+    host chunk) leaves every state leaf and the mailbox untouched."""
+    kw, t, snaps = _captured("b4_prio")
+    cfg = TConfig(**kw)
+    sh, lt, fwd, rev = tables_from_numpy(t, "cpu")
+    body = tdaemon._sim_body_fn(cfg)
+    for st, inbox, _, _ in snaps[1:4]:
+        tst = state_from_numpy(st, cfg, "cpu")
+        tst = tst._replace(global_live=torch.zeros_like(tst.global_live))
+        before = state_to_numpy(tst)
+        tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
+        got, got_in = body(sh, lt, fwd, rev, tst, tin)
+        _assert_leaves_equal(state_to_numpy(got), before, "gated state")
+        for f, v in inbox.items():
+            np.testing.assert_array_equal(getattr(got_in, f).numpy(), v)
+
+
+@pytest.mark.parametrize("name", ["b4_prio", "b1_fr"])
+def test_build_sim_tick_matches_reference_tick(name):
+    """``build_sim_tick`` (k gated bodies per call, mailbox stored at the
+    boundary, tick accounting) equals the reference's tick call for call,
+    including the calls that run past the launch's end."""
+    cfg_j, kw, rt = _workload(dict(CONFIGS[name], superstep_budget=40))
+    t = rt._tables
+    cfg = TConfig(**kw)
+    jtick = jax.jit(jdaemon.build_sim_tick(cfg_j, t, barrier=False),
+                    static_argnums=1)
+    ttick = tdaemon.build_sim_tick(cfg, t, "cpu", barrier=False)
+    jst = jdaemon.launch_prologue(rt.queues.pack_sq(rt.state))
+    tst = state_from_numpy(_np_tree(jst), cfg, "cpu")
+    for k in (7, 7, 30, 5):
+        jst, jf = jtick(jst, k)
+        tst, tf = ttick(tst, k)
+        _assert_leaves_equal(state_to_numpy(tst), _np_tree(jst),
+                             f"{name} tick k={k}")
+        assert (int(tf.steps), bool(tf.live), bool(tf.drained)) == \
+            (int(jf.steps), bool(jf.live), bool(jf.drained))
+    assert not bool(tf.live)            # the last calls ran past the end
+
+
+def test_chain_relink_fired_matches_reference():
+    """The deferred chain-relink mask on the reference's composite tables,
+    over seeded stage-completion deltas."""
+    from repro.core.scheduler import chain_relink_fired as jfired
+    from repro_torch.core.scheduler import chain_relink_fired as tfired
+
+    kw, t, snaps = _captured("chain")
+    jsh, jlt = jdaemon.shared_tables(t), jdaemon.local_tables(t)
+    sh, lt, _, _ = tables_from_numpy(t, "cpu")
+    vfired = jax.vmap(jfired, in_axes=(None, 0, 0, 0))
+    rng = np.random.RandomState(4)
+    fired = 0
+    for st, _, _, _ in snaps:
+        prev = st["stage_completions"]
+        cur = prev + rng.randint(0, 2, prev.shape).astype(np.int32)
+        want = np.asarray(vfired(jsh, jlt, prev, cur))
+        got = tfired(sh, lt, torch.from_numpy(prev), torch.from_numpy(cur))
+        np.testing.assert_array_equal(got.numpy(), want)
+        fired += int(want.sum())
+    assert fired > 0
