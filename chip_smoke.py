@@ -23,7 +23,8 @@ Phases (each raises on failure; the script then exits non-zero):
    in another order);
 5. one profiled launch of 32 supersteps at the real-size config: host wall
    time against device kernel time per superstep, and the device's idle
-   share;
+   share; the launch counter's rise in that launch (CUDA-graph replays
+   included) must equal the ``fused_primitive`` kernels the profiler saw;
 6. a ``{"kernels": [...]}`` JSON line: per kernel its launches on the main
    path (phases 3 and 4, counts zeroed just before, read just after), its
    time, its plain version's time, its bound and its max abs error;
@@ -49,6 +50,9 @@ ADV = dict(n_ranks=8, max_colls=8, max_comms=1, slice_elems=64,
 REAL = dict(n_ranks=8, max_colls=2, max_comms=1, slice_elems=1024,
             conn_depth=32, burst_slices=8, heap_elems=1 << 24)
 REAL_BUCKET = 1 << 22
+ADV_ITERS, REAL_ITERS = 3, 2
+PROFILE_STEPS = 32
+TIME_ITERS = 200               # kernel calls per timing
 # The reference's superstep and preempt counts for the adversarial phase
 # (hardware-independent; tests/test_torch_adversarial.py holds the port to
 # the reference on the CPU, and the graph-replayed daemon must match them).
@@ -108,13 +112,13 @@ def compare_bits(got, want) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def time_ms(fn, iters: int = 200) -> tuple[float, float]:
+def time_ms(fn) -> tuple[float, float]:
     """(device ms per call, host-issued ms per call) of ``fn``.
 
-    The first number replays ``iters`` calls captured in one CUDA graph —
+    The first number replays ``TIME_ITERS`` calls captured in one CUDA graph —
     the kernels back to back with no host issue in between, as the
     daemon's graph-replayed supersteps run them; the second times
-    ``iters`` eager calls, which at these sizes measures the host's launch
+    ``TIME_ITERS`` eager calls, which at these sizes measures the host's launch
     path.  CUDA events, after a warm-up."""
     import torch
 
@@ -124,14 +128,14 @@ def time_ms(fn, iters: int = 200) -> tuple[float, float]:
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
+    for _ in range(TIME_ITERS):
         fn()
     b.record()
     torch.cuda.synchronize()
-    eager = a.elapsed_time(b) / iters
+    eager = a.elapsed_time(b) / TIME_ITERS
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
+        for _ in range(TIME_ITERS):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -139,7 +143,7 @@ def time_ms(fn, iters: int = 200) -> tuple[float, float]:
     graph.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters, eager
+    return a.elapsed_time(b) / TIME_ITERS, eager
 
 
 def phase_kernels(device) -> dict:
@@ -187,7 +191,7 @@ def phase_kernels(device) -> dict:
 # phase 3: adversarial orders at the example's size
 # ---------------------------------------------------------------------------
 
-def phase_adversarial(device, iters: int = 3) -> dict:
+def phase_adversarial(device) -> dict:
     from repro_torch.core import (CollKind, OcclConfig, OcclRuntime,
                                   run_static_order)
 
@@ -203,7 +207,7 @@ def phase_adversarial(device, iters: int = 3) -> dict:
     sizes = [64 << (i % 5) for i in range(C)]
     ids = [rt.register(CollKind.ALL_REDUCE, world, n_elems=s) for s in sizes]
     t0 = time.perf_counter()
-    for it in range(iters):
+    for it in range(ADV_ITERS):
         data = {i: [rng.randn(sizes[i]).astype(np.float32) for _ in range(R)]
                 for i in range(C)}
         for r in range(R):
@@ -226,9 +230,8 @@ def phase_adversarial(device, iters: int = 3) -> dict:
     print(f"[adversarial] OCCL completed {res['completed']} all-reduces "
           f"correctly in {res['supersteps']} supersteps, {res['preempts']} "
           f"preempts, {res['launches']} launches, {secs:.3f} s")
-    if iters == 3:
-        assert (res["supersteps"], res["preempts"]) == (
-            ADV_SUPERSTEPS, ADV_PREEMPTS), res
+    assert (res["supersteps"], res["preempts"]) == (
+        ADV_SUPERSTEPS, ADV_PREEMPTS), res
     return res
 
 
@@ -236,19 +239,18 @@ def phase_adversarial(device, iters: int = 3) -> dict:
 # phase 4: real size
 # ---------------------------------------------------------------------------
 
-def phase_real(device, card: str, iters: int = 2, cfg: dict = REAL,
-               bucket: int = REAL_BUCKET) -> dict:
+def phase_real(device, card: str) -> dict:
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
 
-    R = cfg["n_ranks"]
-    rt = OcclRuntime(OcclConfig(**cfg), device=device)
+    R = REAL["n_ranks"]
+    rt = OcclRuntime(OcclConfig(**REAL), device=device)
     world = rt.communicator(list(range(R)))
-    ids = [rt.register(CollKind.ALL_REDUCE, world, n_elems=bucket)
+    ids = [rt.register(CollKind.ALL_REDUCE, world, n_elems=REAL_BUCKET)
            for _ in range(2)]
     rng = np.random.default_rng(2024)
     runs = []
-    for it in range(iters):
-        xs = [rng.standard_normal((R, bucket), dtype=np.float32)
+    for it in range(REAL_ITERS):
+        xs = [rng.standard_normal((R, REAL_BUCKET), dtype=np.float32)
               for _ in ids]
         for r in range(R):
             order = [0, 1] if r % 2 == 0 else [1, 0]
@@ -269,7 +271,7 @@ def phase_real(device, card: str, iters: int = 2, cfg: dict = REAL,
             for r in range(R):
                 np.testing.assert_allclose(outs[(r, cid)], want, rtol=1e-5,
                                            atol=1e-5)
-        per_rank = 2 * bucket * 4
+        per_rank = 2 * REAL_BUCKET * 4
         algbw = 2 * (R - 1) / R * per_rank / secs
         runs.append({"seconds": secs, "supersteps": steps,
                      "supersteps_per_s": steps / secs, "preempts": pre,
@@ -285,15 +287,19 @@ def phase_real(device, card: str, iters: int = 2, cfg: dict = REAL,
 # phase 5: where the time goes (one short profiled launch at real size)
 # ---------------------------------------------------------------------------
 
-def phase_profile(device, card: str, steps: int = 32) -> dict:
-    """Profile one launch of ``steps`` supersteps at the real-size config
-    (data already on the device): host wall time against device kernel time
-    per superstep, the device's idle share and the kernel count."""
+def phase_profile(device, card: str) -> dict:
+    """Profile one launch of ``PROFILE_STEPS`` supersteps at the real-size
+    config (data already on the device): host wall time against device
+    kernel time per superstep, the device's idle share and the kernel
+    count.  Raises unless the launch counter rose by exactly the number of
+    ``fused_primitive`` kernels the profiler saw run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
+    from repro_torch.kernels import fused_slice as fs
 
-    cfg = dict(REAL, superstep_budget=steps, quit_threshold=steps)
+    cfg = dict(REAL, superstep_budget=PROFILE_STEPS,
+               quit_threshold=PROFILE_STEPS)
     R = cfg["n_ranks"]
     rt = OcclRuntime(OcclConfig(**cfg), device=device)
     world = rt.communicator(list(range(R)))
@@ -305,14 +311,17 @@ def phase_profile(device, card: str, steps: int = 32) -> dict:
             rt.submit(r, ids[b], data=x)
     rt.launch_once()                    # flushes the payloads, warms up
     torch.cuda.synchronize()
+    counted = fs.fused_primitive.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rt.launch_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = fs.fused_primitive.launches - counted
     ran = rt.launch_history[-1]["launch_steps"]
     dev_us = n_kernels = fused_us = 0.0
+    traced = 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = getattr(e, "self_device_time_total",
@@ -321,6 +330,10 @@ def phase_profile(device, card: str, steps: int = 32) -> dict:
             n_kernels += e.count
             if "fused_primitive" in e.key:
                 fused_us += us
+                traced += e.count
+    print(f"[profile] fused_primitive launches in the profiled launch: "
+          f"counter {counted}, profiler {traced}")
+    assert counted == traced > 0, (counted, traced)
     res = {"supersteps": ran, "wall_ms_per_superstep": wall * 1e3 / ran,
            "device_ms_per_superstep": dev_us / 1e3 / ran,
            "device_idle_share": 1.0 - dev_us / 1e6 / wall,
@@ -353,8 +366,10 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     print(card)
+    from torch.utils.cpp_extension import is_ninja_available
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)} ninja "
+          f"{is_ninja_available()}")
 
     entry = phase_kernels(device)
 

@@ -206,11 +206,17 @@ class _ChunkRunner:
     also warms every lazily built kernel and cached index tensor) and is
     then captured into a CUDA graph over static input buffers; each later
     full chunk copies the live leaves in, replays, and returns copies of the
-    outputs (so no caller ever holds a graph-owned buffer).  The heaps are
-    updated in place and are the SAME tensors in every call, so the graph
-    reads and writes the runtime's heaps directly.  A shorter tail chunk and
-    CPU tensors run eagerly.  Replay executes exactly the captured bodies,
-    so trajectories are bit-identical to eager execution."""
+    graph-owned outputs (so no caller ever holds a graph-owned buffer).  The
+    heaps are the runtime's own tensors, updated in place: the graph reads
+    and writes them directly and a replay returns them as they are, so
+    they are neither cloned nor copied back.  A shorter tail chunk and CPU
+    tensors run eagerly.  Replay executes exactly the captured bodies, so
+    trajectories are bit-identical to eager execution.
+
+    The ``fused_primitive`` wrapper counts its launches while the chunk is
+    captured; that count (the kernel launches the graph holds) is taken
+    off the counter again, since the capture itself runs nothing, and
+    added once per replay."""
 
     def __init__(self, body, tables, chunk: int):
         self.body, self.tables, self.chunk = body, tables, chunk
@@ -230,17 +236,17 @@ class _ChunkRunner:
             if dst is not src:
                 dst.copy_(src)
         self.graph.replay()
-        # The replay launched the captured fused_primitive kernel once per
-        # body (the capture itself launched nothing).
-        fused_slice.fused_primitive.launches += self.chunk
+        fused_slice.fused_primitive.launches += self.per_replay
         st_out, in_out, steps = self.out
-        return (DaemonState(*[t.clone() for t in st_out]),
+        return (DaemonState(*[self._own(t) for t in st_out]),
                 Mailbox(*[t.clone() for t in in_out]), steps.clone())
 
+    def _own(self, t: torch.Tensor) -> torch.Tensor:
+        return t if any(t is h for h in self.heaps) else t.clone()
+
     def _capture(self, st: DaemonState, inbox: Mailbox) -> None:
-        heaps = (st.heap_in, st.heap_out)
-        st_in = DaemonState(*[t if any(t is h for h in heaps) else t.clone()
-                              for t in st])
+        self.heaps = (st.heap_in, st.heap_out)
+        st_in = DaemonState(*[self._own(t) for t in st])
         in_in = Mailbox(*[t.clone() for t in inbox])
         self.static = (*st_in, *in_in)
         launches = fused_slice.fused_primitive.launches
@@ -248,7 +254,11 @@ class _ChunkRunner:
         with torch.cuda.graph(graph):
             self.out = _run_bodies(self.body, *self.tables, st_in, in_in,
                                    self.chunk)
+        self.per_replay = fused_slice.fused_primitive.launches - launches
         fused_slice.fused_primitive.launches = launches
+        if self.per_replay <= 0:
+            raise RuntimeError("the captured superstep chunk launches no "
+                               "fused_primitive kernel")
         self.graph = graph
 
 

@@ -32,10 +32,11 @@ C function's ``cudaGetLastError()`` return, raised on by the wrapper.
 Dispatch: :func:`fused_primitive` launches the kernel for CUDA tensors and
 uses :func:`fused_primitive_plain` only for CPU tensors — there is no
 fallback from the card.  ``fused_primitive.launches`` counts kernel
-launches and nothing else: one per call that launches, and, when the
-daemon replays supersteps captured in a CUDA graph, the launches that
-replay executes (``core/daemon.py`` ``_ChunkRunner``; the capture itself
-launches nothing and is not counted).
+launches and nothing else: one per call that launches.  When the daemon
+replays supersteps captured in a CUDA graph (``core/daemon.py``
+``_ChunkRunner``), each replay adds the launches this wrapper counted
+while the chunk was captured; the capture itself runs nothing and is not
+counted.
 """
 from __future__ import annotations
 
