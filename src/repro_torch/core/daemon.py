@@ -39,6 +39,7 @@ from .scheduler import (
     LocalTables,
     Mailbox,
     SharedTables,
+    chain_relink_fired,
     rank_superstep,
     rebase_arrivals,
 )
@@ -169,13 +170,99 @@ def _gate(live: torch.Tensor, new: NamedTuple, old: NamedTuple):
     return type(new)(**out)
 
 
-def _sim_body_fn(cfg: OcclConfig) -> Callable:
-    """ONE gated sim superstep: scheduler over all ranks + fabric exchange
-    + liveness consensus, applied only where the fabric is still live."""
+def _relink_edges(t: StaticTables) -> tuple:
+    """Static per-edge relink descriptors for the sim daemon.
+
+    Each chain edge c -> next_coll[c] rewrites the successor's contiguous
+    input span ``heap_in[:, dst_lo : dst_lo + span]`` from a build-time
+    known gather of ``heap_out`` (``tables._build_chain_tables``).  Every
+    offset is static, so the daemon applies the hand-off as a static slice
+    (or a static gather) plus a ``where``-select per superstep: no dynamic
+    scatter and no branch on the device.  When the source map is one
+    contiguous run (the common chunk hand-off) the gather is a slice.
+
+    Returns the reference's tuple of ``(c, dst_lo, span, ('slice', src_lo,
+    n) | ('gather', idx_bytes))`` entries."""
+    edges = []
+    C = t.chain_dst.shape[0]
+    for c in range(C):
+        dst = t.chain_dst[c]
+        valid = dst < (1 << 30)
+        if not valid.any():
+            continue
+        span = int(valid.sum())
+        dst_lo = int(dst[0])
+        src = t.chain_src[c, :span]
+        live = src >= 0
+        n = int(live.sum())
+        contiguous = (n > 0 and bool(live[:n].all()) and np.array_equal(
+            src[:n], src[0] + np.arange(n, dtype=src.dtype)))
+        if contiguous:
+            desc = ("slice", int(src[0]), n)
+        else:
+            desc = ("gather", src.tobytes())
+        edges.append((c, dst_lo, span, desc))
+    return tuple(edges)
+
+
+def _edge_plan(edges: tuple, device) -> list:
+    """Unpack the relink-edge descriptors; a gather edge's index and
+    validity tensors are built HERE, on the device, once per daemon (the
+    superstep body that uses them is captured as a CUDA graph, where no
+    host-to-device copy may run)."""
+    plan = []
+    for c, dst_lo, span, desc in edges:
+        if desc[0] == "slice":
+            plan.append((c, dst_lo, span, desc[1], desc[2], None))
+        else:
+            idx = np.frombuffer(desc[1], dtype=np.int32).copy()
+            plan.append((c, dst_lo, span, None, None,
+                         (torch.as_tensor(np.maximum(idx, 0),
+                                          dtype=torch.int64, device=device),
+                          torch.as_tensor(idx >= 0, device=device))))
+    return plan
+
+
+def _apply_relink(edge_plan: list, fired: torch.Tensor,
+                  heap_in: torch.Tensor, heap_out: torch.Tensor) -> None:
+    """The reference's deferred relink block, in place: per chain edge, the
+    successor's input span becomes the predecessor's mapped output on the
+    ranks where ``fired[:, c]``, and stays as it is elsewhere."""
+    for c, dst_lo, span, src_lo, n, gather in edge_plan:
+        f = fired[:, c, None]
+        if gather is None:
+            cur = heap_in[:, dst_lo:dst_lo + n]
+            torch.where(f, heap_out[:, src_lo:src_lo + n].to(cur.dtype), cur,
+                        out=cur)
+            if n < span:                # zero-filled pad tail
+                heap_in[:, dst_lo + n:dst_lo + span].masked_fill_(f, 0)
+        else:
+            idx, ok = gather
+            cur = heap_in[:, dst_lo:dst_lo + span]
+            vals = torch.where(ok[None, :], heap_out[:, idx], 0)
+            torch.where(f, vals.to(cur.dtype), cur, out=cur)
+
+
+def _sim_body_fn(cfg: OcclConfig, edge_plan=()) -> Callable:
+    """ONE gated sim superstep: scheduler over all ranks + deferred chain
+    relink + fabric exchange + liveness consensus, applied only where the
+    fabric is still live.
+
+    The relink fires where a chained stage completed in THIS body
+    (:func:`chain_relink_fired` on the ``stage_completions`` delta) and the
+    fabric is live: a gated body leaves ``heap_in`` unchanged, like every
+    other leaf.  It rewrites each edge's whole span every superstep, as the
+    reference's does (parity needs the same writes)."""
 
     def body(sh, lt, fwd_src, rev_src, st, inbox):
         live = st.global_live
-        new, outbox = rank_superstep(cfg, sh, lt, st, inbox, live=live)
+        new, outbox = rank_superstep(cfg, sh, lt, st, inbox, live=live,
+                                     defer_relink=True)
+        if edge_plan:
+            fired = (chain_relink_fired(sh, lt, st.stage_completions,
+                                        new.stage_completions)
+                     & live[:, None])
+            _apply_relink(edge_plan, fired, new.heap_in, new.heap_out)
         new_inbox = _sim_exchange(fwd_src, rev_src, outbox)
         all_drained = _drained(new).all()
         quit_now = new.no_prog.min() >= cfg.quit_threshold
@@ -277,9 +364,10 @@ def _store_mailbox(st: DaemonState, inbox: Mailbox) -> DaemonState:
         mb_rev_count=inbox.rev_count, mb_rev_coll=inbox.rev_coll)
 
 
-def _sim_tick_fn(cfg: OcclConfig, barrier: bool) -> Callable:
+def _sim_tick_fn(cfg: OcclConfig, edge_plan: list, barrier: bool
+                 ) -> Callable:
     """tick(sh, lt, fwd_src, rev_src, st, k) -> (st, TickFlags), sim."""
-    body = _sim_body_fn(cfg)
+    body = _sim_body_fn(cfg, edge_plan)
 
     def tick(sh, lt, fwd_src, rev_src, st, k):
         st, inbox, steps = _run_bodies(body, sh, lt, fwd_src, rev_src, st,
@@ -292,13 +380,6 @@ def _sim_tick_fn(cfg: OcclConfig, barrier: bool) -> Callable:
     return tick
 
 
-def _check_chain_free(t: StaticTables) -> None:
-    if t.chain_src.shape[1] > 0:
-        raise NotImplementedError(
-            "chained (composite) collectives are not ported yet "
-            "(ROADMAP.md, 'Modules to port', item 4)")
-
-
 def build_sim_tick(cfg: OcclConfig, t: StaticTables, device,
                    barrier: bool = False) -> Callable:
     """``tick(state, k) -> (state, TickFlags)``, sim backend: up to ``k``
@@ -306,9 +387,8 @@ def build_sim_tick(cfg: OcclConfig, t: StaticTables, device,
     rank axis).  ``barrier`` is the accounting tag only."""
     from .state import tables_from_numpy
 
-    _check_chain_free(t)
     sh, lt, fwd_src, rev_src = tables_from_numpy(t, device)
-    fn = _sim_tick_fn(cfg, barrier)
+    fn = _sim_tick_fn(cfg, _edge_plan(_relink_edges(t), device), barrier)
     return lambda st, k: fn(sh, lt, fwd_src, rev_src, st, k)
 
 
@@ -322,10 +402,9 @@ def build_sim_daemon(cfg: OcclConfig, t: StaticTables, device) -> Callable:
     flag per chunk."""
     from .state import tables_from_numpy
 
-    _check_chain_free(t)
     chunk = TICK_CHUNK
-    run = _ChunkRunner(_sim_body_fn(cfg), tables_from_numpy(t, device),
-                       chunk)
+    body = _sim_body_fn(cfg, _edge_plan(_relink_edges(t), device))
+    run = _ChunkRunner(body, tables_from_numpy(t, device), chunk)
     limit = cfg.superstep_budget + 1
 
     def daemon(st: DaemonState) -> DaemonState:

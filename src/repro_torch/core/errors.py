@@ -15,8 +15,7 @@ here so callers catch one module's names regardless of which layer threw:
 - :class:`StepTimeout` — the fabric-level training watchdog fired.
 
 The same taxonomy as the reference package's ``core/errors.py``; the
-port's runtime raises these names.  ``diagnosis`` stays ``None`` in the
-port until the recorder's hang diagnosis is ported.
+port's runtime raises these names.
 """
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ class DeadlockTimeout(RuntimeError):
     flight_record : dict | None
         The on-device flight-recorder export (``runtime.stats()
         ["flight_recorder"]`` schema) captured at timeout.
-    diagnosis : object | None
+    diagnosis : repro_torch.core.recorder.Diagnosis | None
         Host-side analysis naming the rank + collective holding each
         stalled chain.
     """

@@ -14,11 +14,6 @@ is rebuilt — which is why eviction forced this API.
 Plain-int call paths remain accepted everywhere as thin deprecated
 shims (``runtime._resolve_cid``); they are only guaranteed against the
 CURRENT registration generation.
-
-Port note: ``evict`` is not ported yet (``OcclRuntime.evict`` raises
-``NotImplementedError``), so in this package a handle always resolves to
-its registration-time id; the resolution path is kept so the handle API
-matches the reference.
 """
 from __future__ import annotations
 

@@ -201,8 +201,7 @@ class CollectiveSpec:
     Buffer *addresses* (heap offsets) live here as defaults but may be
     overridden per submission by the SQE (paper Sec. 3.1.2).  The chain
     fields (``next_coll``, ``chain_stage``, ``inherit_prio``, ``in_perm``)
-    are kept for parity with the reference; the port registers flat ring
-    collectives only, so they hold their defaults.
+    link the stages of a composite collective (``algos.CompositePlan``).
     """
 
     coll_id: int

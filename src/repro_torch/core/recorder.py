@@ -22,8 +22,11 @@ Alongside the ring the state keeps wrap-proof per-kind cumulative
 counters (``fr_kinds``) that reconcile with the scheduler's own counters.
 
 PyTorch port of ``repro.core.recorder``: the constants, :class:`FlightEvent`,
-:func:`export_record` and :func:`events`.  The host-side hang diagnosis
-(``diagnose``) is not ported yet (ROADMAP.md, "Modules to port", item 6).
+:func:`export_record`, :func:`events` and the host side, :func:`diagnose`:
+on a hang it names the rank + collective holding each stalled chain, first
+from host submission bookkeeping (a member that never submitted, the
+common lost-rank case), falling back to the recorder clock (the member
+whose chain events are oldest).
 """
 from __future__ import annotations
 
@@ -94,3 +97,98 @@ def events(record: dict, rank: int | None = None) -> list[FlightEvent]:
                                    coll=int(record["coll"][r, s]),
                                    step=int(record["step"][r, s])))
     return out
+
+
+# ----------------------------------------------------------------------
+# Host-side hang diagnosis
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class StalledChain:
+    """One logical collective that cannot complete, and who holds it."""
+
+    coll_id: int          # logical (head) collective id
+    algo: str
+    members: tuple        # participating ranks
+    waiting_ranks: list   # ranks with an outstanding submission
+    holding_ranks: list   # ranks diagnosed as holding the chain
+    reason: str
+
+    def __str__(self):
+        hold = ",".join(map(str, self.holding_ranks)) or "?"
+        wait = ",".join(map(str, self.waiting_ranks))
+        return (f"collective {self.coll_id} ({self.algo}) held by "
+                f"rank(s) {hold}: {self.reason} "
+                f"(waiting ranks: {wait})")
+
+
+@dataclasses.dataclass
+class Diagnosis:
+    stalled: list
+
+    @property
+    def holders(self) -> list:
+        """All ranks named as holding at least one stalled chain."""
+        out: list[int] = []
+        for s in self.stalled:
+            for r in s.holding_ranks:
+                if r not in out:
+                    out.append(r)
+        return sorted(out)
+
+    def __str__(self):
+        if not self.stalled:
+            return "no stalled collectives (all submissions reconciled)"
+        return "\n".join(str(s) for s in self.stalled)
+
+
+def diagnose(runtime) -> Diagnosis:
+    """Name the rank + collective holding each stalled chain.
+
+    Two signals, in order of strength:
+
+    1. Host submission bookkeeping: a member whose cumulative submit
+       count for the collective lags the most-submitted member never
+       handed the daemon its SQE — the lost-rank / withheld-submission
+       case.  This is decisive because OCCL's preemption machinery makes
+       *scheduling* deadlocks impossible; only a missing participant can
+       wedge a chain.
+    2. The flight recorder: if every member submitted equally, the
+       member whose latest event touching the chain's stages is OLDEST
+       on the epoch clock made the least recent progress.
+    """
+    stalled: list[StalledChain] = []
+    by_coll: dict[int, list[int]] = {}
+    for (r, cid), dq in runtime._outstanding.items():
+        if dq:
+            by_coll.setdefault(cid, []).append(r)
+    record = runtime.export_flight_record()
+    for cid in sorted(by_coll):
+        waiting = sorted(by_coll[cid])
+        members = tuple(runtime._logical_members.get(
+            cid, runtime.specs[cid].comm.members))
+        algo = runtime._algo_of.get(cid, "ring")
+        counts = {m: runtime._submit_counts.get((m, cid), 0)
+                  for m in members}
+        mx = max(counts.values()) if counts else 0
+        holders = [m for m in members if counts[m] < mx]
+        if holders:
+            reason = (f"never submitted (peers at {mx} submission"
+                      f"{'s' if mx != 1 else ''})")
+        else:
+            # Everyone submitted: fall back to recorder recency over the
+            # chain's stage ids.
+            stages = set(runtime._chain_of.get(cid, [cid]))
+            last: dict[int, int] = {}
+            for ev in events(record):
+                if ev.rank in counts and ev.coll in stages:
+                    last[ev.rank] = max(last.get(ev.rank, -1), ev.step)
+            oldest = min((last.get(m, -1) for m in members), default=-1)
+            holders = [m for m in members if last.get(m, -1) == oldest]
+            reason = (f"slowest chain progress (last recorded event at "
+                      f"superstep {oldest})")
+        stalled.append(StalledChain(coll_id=int(cid), algo=str(algo),
+                                    members=members,
+                                    waiting_ranks=waiting,
+                                    holding_ranks=holders,
+                                    reason=reason))
+    return Diagnosis(stalled=stalled)

@@ -32,9 +32,10 @@ superstep.  The translation rules that keep it so:
   the reference); only gather/scatter indices are widened to int64.
 * **In place.**  The per-lane output windows are written into ``heap_out``
   in place (a full functional copy of a 2^24-element heap per superstep
-  would dominate); every other leaf is rebuilt functionally.  The ``live``
-  argument of :func:`rank_superstep` masks those writes, so a superstep run
-  after the fabric went not-live leaves the heap untouched.
+  would dominate), and so is the chain relink into ``heap_in``; every other
+  leaf is rebuilt functionally.  The ``live`` argument of
+  :func:`rank_superstep` masks those writes, so a superstep run after the
+  fabric went not-live leaves both heaps untouched.
 
 The slice math of the burst (``op(payload, local)`` where-chain) always goes
 through :func:`repro_torch.kernels.ops.fused_primitive_batch`, which launches
@@ -416,12 +417,21 @@ def _window_index(base: torch.Tensor, width: int, heap_len: int
 
 
 def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
-               local: LocalTables, live: torch.Tensor | None = None
+               local: LocalTables, live: torch.Tensor | None = None,
+               defer_relink: bool = False
                ) -> tuple[DaemonState, torch.Tensor, Mailbox]:
     """Phase C for ALL lanes of ALL ranks: two-phase-blocking selection + one
     credit-gated slice burst per lane.  ``live`` [R] masks the in-place
-    heap writes (see module docstring).  Returns (state, moved_any [R],
-    outbox)."""
+    heap writes (see module docstring).
+
+    ``defer_relink`` skips the in-step chain relink: the caller applies it
+    after the step from the ``stage_completions`` delta
+    (:func:`chain_relink_fired`; the sim daemon does, with static per-edge
+    slices).  The reference's ``cond_relink`` (a ``lax.cond`` around the
+    relink on the mesh backend) is a JAX tracing choice: eager PyTorch has
+    one meaning for it, so it does not come across.
+
+    Returns (state, moved_any [R], outbox)."""
     K, SL, B = cfg.conn_depth, cfg.slice_elems, cfg.burst_slices
     C, L = cfg.max_colls, cfg.max_comms
     R = st.cur.shape[0]
@@ -628,6 +638,18 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
             valid=torch.cat([overspun, coll_done, chain_adv, logical_done],
                             dim=1))
 
+    # Chain hand-off relink: rewrite the successor's padded input span in
+    # heap_in from the predecessor's just-finalized heap_out region via the
+    # registration-time composed stage maps (pads zero-filled).  Only when
+    # the registration has chains (M > 0).  Row c describes the GLOBAL edge
+    # c -> next_coll[c], so it fires only where this rank's successor IS
+    # that stage (a partial-membership rank skipping it hands off nothing).
+    if shared.chain_src.shape[1] > 0 and not defer_relink:
+        relink_adv = chain_adv & (succ == shared.next_coll[cl])
+        if live is not None:
+            relink_adv = relink_adv & live[:, None]
+        _relink_in_step(st.heap_in, st.heap_out, shared, cl, relink_adv)
+
     outbox = Mailbox(
         fwd_count=n_send,
         fwd_coll=c,
@@ -638,12 +660,38 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
     return st, gate.any(1), outbox
 
 
+def _relink_in_step(heap_in: torch.Tensor, heap_out: torch.Tensor,
+                    shared: SharedTables, cl: torch.Tensor,
+                    adv: torch.Tensor) -> None:
+    """The reference's in-step relink scatter (``heap_in.at[dst].set(vals,
+    mode="drop")``), in place, lane by lane.  A target that must not be
+    written (its row does not fire, or it is the out-of-range sentinel,
+    clamped to the heap's last element) writes back the value it read.
+    A row's real targets are distinct and lie below ``heap_elems``, and
+    the clamped sentinels land in the window scratch tail, so no two
+    writes to one element ever disagree."""
+    H = heap_in.shape[1]
+    for l in range(cl.shape[1]):
+        src = shared.chain_src[cl[:, l]].long()               # [R, M]
+        dst = shared.chain_dst[cl[:, l]].long()
+        vals = torch.where(src >= 0,
+                           torch.gather(heap_out, 1, src.clamp(min=0)), 0)
+        ok = adv[:, l, None] & (dst < H)
+        idx = dst.clamp(max=H - 1)
+        cur = torch.gather(heap_in, 1, idx)
+        heap_in.scatter_(1, idx, torch.where(ok, vals.to(heap_in.dtype),
+                                             cur))
+
+
 def chain_relink_fired(shared: SharedTables, local: LocalTables,
                        prev_stage_completions: torch.Tensor,
                        stage_completions: torch.Tensor) -> torch.Tensor:
     """[R, C] mask of chained stages whose hand-off relink must fire on each
-    rank this superstep, recovered from the ``stage_completions`` delta
-    (all False for the chain-free registrations the port supports yet)."""
+    rank this superstep, recovered from the ``stage_completions`` delta.
+
+    Matches the in-step ``relink_adv`` gating of :func:`lanes_step`: the
+    stage completed here this superstep AND this rank's chain successor is
+    the stage's GLOBAL next stage."""
     return ((stage_completions > prev_stage_completions)
             & (local.chain_next == shared.next_coll[None, :])
             & (shared.next_coll >= 0)[None, :])
@@ -651,13 +699,17 @@ def chain_relink_fired(shared: SharedTables, local: LocalTables,
 
 def rank_superstep(cfg: OcclConfig, shared: SharedTables, local: LocalTables,
                    st: DaemonState, inbox: Mailbox,
-                   live: torch.Tensor | None = None
+                   live: torch.Tensor | None = None,
+                   defer_relink: bool = False
                    ) -> tuple[DaemonState, Mailbox]:
     """One full superstep for every rank (the reference's per-rank
-    ``rank_superstep`` under ``vmap``, chain relink deferred)."""
+    ``rank_superstep`` under ``vmap``).  ``defer_relink`` as in
+    :func:`lanes_step`; the relink, like the heap_out windows, writes
+    ``heap_in`` in place."""
     st = apply_inbox(cfg, st, inbox)
     st, fetched = fetch_sqe(cfg, st, shared, local)
-    st, moved_any, outbox = lanes_step(cfg, st, shared, local, live=live)
+    st, moved_any, outbox = lanes_step(cfg, st, shared, local, live=live,
+                                       defer_relink=defer_relink)
     progress = moved_any | fetched
     st = st._replace(
         supersteps=st.supersteps + 1,

@@ -7,9 +7,11 @@ dense arrays indexed by collective id.  Per-rank tables (primitive
 programs, membership) carry a leading rank axis.
 
 PyTorch port of ``repro.core.tables``: all numpy, field-for-field equal to
-the reference's tables for every flat (ring) registration.  The composite
-chain tables are produced in their chain-free shapes; ``tables_from_numpy``
-in :mod:`repro_torch.core.state` moves them onto a device.
+the reference's tables for every registration, composite chains included
+(successor, tail and mask tables, the heap relink maps of every chain edge
+and the per-rank chain maps of partial-membership plans).
+``tables_from_numpy`` in :mod:`repro_torch.core.state` moves them onto a
+device.
 """
 from __future__ import annotations
 
@@ -153,11 +155,6 @@ def build_tables(
     for s in specs:
         assert s.coll_id < C
         assert s.comm.lane < L
-        # Composite chains are not ported yet (ROADMAP.md, "Modules to
-        # port", item 4): every chain table keeps its chain-free default
-        # (identity masks, self tails, [C, 0] relink maps), exactly what
-        # the reference produces for a chain-free registration.
-        assert s.next_coll < 0, "chained collectives are not ported yet"
 
     S = max(
         [program_len(CollKind(s.kind), s.group_size) for s in specs] or [1]
@@ -274,6 +271,8 @@ def build_tables(
             for step, (prim, chunk) in enumerate(prog):
                 t.prog_kind[rank, c, step] = int(prim)
                 t.prog_chunk[rank, c, step] = chunk
+    _build_chain_tables(t, specs)
+    _build_rank_chain_maps(t, specs)
     return t
 
 
@@ -292,6 +291,111 @@ def _lane_cap(cfg: OcclConfig, comm) -> int:
         for ring in comm.rings() for i in range(len(ring)))
     cap = cfg.inter_burst_cap if inter else cfg.intra_burst_cap
     return max(1, min(B, cap)) if cap > 0 else B
+
+
+def _build_chain_tables(t: StaticTables, specs: list) -> None:
+    """Resolve chain closure (tail ids, chain membership masks) and the
+    heap relink maps of every chain edge.
+
+    The relink map of edge ``c -> succ`` rewrites the successor's whole
+    padded input span from c's output region by composing the two
+    registration-time stage maps: logical element j of the hand-off lives
+    at ``base_out_off[c] + stage_out_map[c][j]`` in ``heap_out`` and must
+    land at ``base_in_off[succ] + stage_in_map[succ][j]`` in ``heap_in``;
+    every other in-span position is a pad the relink zero-fills (source
+    -1), so stale heap data can never leak into the successor's slices.
+    Offsets are ABSOLUTE: chain intermediates always run at their
+    registered base offsets (per-SQE overrides apply only to the logical
+    endpoints — the head's input, the tail's output).
+    """
+    by_id = {s.coll_id: s for s in specs}
+    edges = []
+    for s in specs:
+        c = s.coll_id
+        if s.next_coll < 0:
+            continue
+        succ = by_id.get(s.next_coll)
+        assert succ is not None, (
+            f"collective {c}: successor {s.next_coll} is not registered")
+        assert int(t.out_log[c]) == int(t.in_log[succ.coll_id]), (
+            f"chain edge {c} -> {succ.coll_id}: logical sizes differ "
+            f"({int(t.out_log[c])} vs {int(t.in_log[succ.coll_id])})")
+        edges.append((c, succ.coll_id))
+    # Tail closure + chain membership masks (rows identical for every
+    # stage of a chain; one-hot + self-tail for flat collectives).
+    for s in specs:
+        members = _chain_members(by_id, s.coll_id)
+        for a in members:
+            t.chain_tail[a] = members[-1]
+            for b in members:
+                t.chain_mask[a, b] = True
+    if not edges:
+        return
+    M = max(int(t.in_span[succ]) for _, succ in edges)
+    t.chain_src = np.full((t.chain_mask.shape[0], M), -1, np.int32)
+    # Unused rows point the relink at an out-of-heap sentinel (dropped,
+    # as the reference's mode='drop' scatter does); they are also gated off
+    # by the completion mask.
+    t.chain_dst = np.full((t.chain_mask.shape[0], M), 1 << 30, np.int32)
+    for c, succ in edges:
+        span = int(t.in_span[succ])
+        src = np.full(span, -1, np.int32)
+        n_log = int(t.in_log[succ])
+        src[t.stage_in_map[succ]] = (
+            t.base_out_off[c] + t.stage_out_map[c][:n_log])
+        t.chain_src[c, :span] = src
+        t.chain_dst[c, :span] = t.base_in_off[succ] + np.arange(
+            span, dtype=np.int32)
+
+
+def _build_rank_chain_maps(t: StaticTables, specs: list) -> None:
+    """Per-rank successor/tail maps for partial-membership chains.
+
+    A stage of a composite plan may cover only a subset of the logical
+    members (tree broadcast's leader ring, hybrid's inter all-reduce), so
+    the global ``next_coll`` chain is specialized per rank:
+    ``chain_next[r, c]`` is the first stage AFTER c (following next_coll)
+    that rank r participates in, and ``chain_tail_r[r, c]`` is r's last
+    participating stage of c's whole chain — where r's logical CQE fires
+    and where its per-SQE out_off override resolves.  For chains whose
+    every stage covers every member both maps equal the global
+    next_coll / chain_tail rows, and flat collectives keep the defaults
+    (-1 / self), so the scheduler's chain-free semantics are unchanged.
+    """
+    by_id = {s.coll_id: s for s in specs}
+    Rk = t.member.shape[0]
+    for s in specs:
+        c = s.coll_id
+        chain = _chain_members(by_id, c)
+        if len(chain) == 1:
+            continue
+        for rank in range(Rk):
+            if not t.member[rank, c]:
+                continue
+            nxt = -1
+            for cand in chain[chain.index(c) + 1:]:
+                if t.member[rank, cand]:
+                    nxt = cand
+                    break
+            t.chain_next[rank, c] = nxt
+            mine = [a for a in chain if t.member[rank, a]]
+            t.chain_tail_r[rank, c] = mine[-1]
+
+
+def _chain_members(by_id: dict, c: int) -> list:
+    """All collective ids sharing c's chain (walk to the head, then down)."""
+    preds = {s.next_coll: s.coll_id for s in by_id.values()
+             if s.next_coll >= 0}
+    head, hops = c, 0
+    while head in preds:
+        head = preds[head]
+        hops += 1
+        assert hops <= len(by_id), "cycle in collective chain"
+    members = [head]
+    while by_id[members[-1]].next_coll >= 0:
+        members.append(by_id[members[-1]].next_coll)
+        assert len(members) <= len(by_id), "cycle in collective chain"
+    return members
 
 
 def _build_stage_maps(t: StaticTables, c: int, s: CollectiveSpec,

@@ -22,12 +22,9 @@ row, 16-byte loads and stores, flags read once per block) is the simple
 correct one; fusing the scheduler's ``recv_val`` / ``in_val`` gathers
 (``src/repro/core/scheduler.py:564-583``) into it is later work.
 
-Build: ``nvcc`` compiles the source at first use into a shared library with
-a plain C interface under ``build/kernels/`` at the repository root (listed
-in ``.gitignore``), keyed by the source's hash, and ``ctypes`` loads it.
-This is the route without PyTorch's headers, which builds in seconds where
-``torch.utils.cpp_extension.load`` takes minutes; the launch check is the
-C function's ``cudaGetLastError()`` return, raised on by the wrapper.
+Build: the shared ``nvcc`` + ``ctypes`` route of :mod:`._build`
+(``build/kernels/``, at first use); the launch check is the C function's
+``cudaGetLastError()`` return, raised on by the wrapper.
 
 Dispatch: :func:`fused_primitive` launches the kernel for CUDA tensors and
 uses :func:`fused_primitive_plain` only for CPU tensors — there is no
@@ -41,23 +38,23 @@ counted.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import subprocess
-import tempfile
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
-    "fused_primitive.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_lib = None
-build_log = ""      # nvcc's output of the build this process ran ("" if cached)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.occl_fused_primitive.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.occl_fused_primitive.restype = ctypes.c_int
+
+
+LIBRARY = _build.Library("fused_primitive.cu", _bind)
 
 
 def fused_primitive_plain(payload: torch.Tensor, local: torch.Tensor,
@@ -78,44 +75,6 @@ def fused_primitive_plain(payload: torch.Tensor, local: torch.Tensor,
         reduce, combined,
         torch.where(recv, pf, torch.where(reads, lf, torch.zeros_like(lf))))
     return val.to(payload.dtype)
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME): cannot build "
-                           "the fused_primitive kernel")
-    return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libocclk_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{build_log}")
-        os.replace(tmp, so)             # atomic: concurrent builds agree
-    lib = ctypes.CDLL(str(so))
-    lib.occl_fused_primitive.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.occl_fused_primitive.restype = ctypes.c_int
-    _lib = lib
-    return lib
 
 
 def _check(payload, local, flags) -> None:
@@ -159,8 +118,7 @@ def fused_primitive(payload: torch.Tensor, local: torch.Tensor,
     vec = 16 // payload.element_size()
     vec_ok = int(s % vec == 0 and all(
         t.data_ptr() % 16 == 0 for t in (payload, local, out)))
-    lib = build()
-    err = lib.occl_fused_primitive(
+    err = LIBRARY.load().occl_fused_primitive(
         payload.data_ptr(), local.data_ptr(), flags.data_ptr(),
         out.data_ptr(), n, s, _DTYPE_CODES[payload.dtype], vec_ok,
         torch.cuda.current_stream(payload.device).cuda_stream)

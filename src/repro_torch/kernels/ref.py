@@ -6,6 +6,8 @@ oracle name.
 """
 from __future__ import annotations
 
+from .chunk_combine import chunk_combine_plain
+from .chunk_combine import chunk_combine_plain as chunk_combine_ref
 from .fused_slice import fused_primitive_plain as fused_primitive_ref
 
-__all__ = ["fused_primitive_ref"]
+__all__ = ["chunk_combine_plain", "chunk_combine_ref", "fused_primitive_ref"]

@@ -6,6 +6,7 @@ import numpy as np
 
 import repro.core as J
 import repro_torch.core as T
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 R, C, ITERS = 8, 8, 3
 

@@ -1,11 +1,12 @@
-"""Port kernel module: ``fused_primitive``'s plain PyTorch version against
-the reference Pallas kernel (interpret mode) and the reference oracle
-``ref.fused_primitive_ref``, bit for bit.
+"""Port kernel modules: the plain PyTorch versions of ``fused_primitive``
+and ``chunk_combine`` against the reference Pallas kernels (interpret mode)
+and the reference oracles (``ref.fused_primitive_ref``,
+``ref.chunk_combine_ref``), bit for bit.
 
-The CUDA kernel itself runs only on the card (it has no CPU mode);
-``chip_smoke.py`` holds it bitwise against this same plain version there,
-at the main path's shapes, NaN and inf rows included.  Here the wrapper takes the
-plain version because the tensors lie on the CPU.
+The CUDA kernels themselves run only on the card (they have no CPU mode);
+``chip_smoke.py`` holds them bitwise against these same plain versions
+there, at the main path's shapes, NaN and inf entries included.  Here the
+wrappers take the plain versions because the tensors lie on the CPU.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +14,14 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.chunk_combine import chunk_combine_pallas
 from repro.kernels.fused_slice import fused_primitive_pallas
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.chunk_combine import (chunk_combine,
+                                               chunk_combine_plain)
 from repro_torch.kernels.fused_slice import (fused_primitive,
                                              fused_primitive_plain)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -155,3 +160,75 @@ def test_wrapper_refuses_bad_inputs(bad):
         p, l = p.double(), l.double()
     with pytest.raises((TypeError, ValueError)):
         fused_primitive(p, l, f)
+
+
+# ---------------------------------------------------------------------------
+# chunk_combine
+# ---------------------------------------------------------------------------
+
+def _combine_check(a, b, op, td):
+    got = chunk_combine(_to_torch(a, td), _to_torch(b, td), op)
+    _assert_bitwise(got, chunk_combine_pallas(a, b, op, interpret=True))
+    _assert_bitwise(got, np.asarray(jref.chunk_combine_ref(a, b, op)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [8, 1000, 1024, 4096, 5000])
+@pytest.mark.parametrize("op", [0, 1, 2, 3])
+def test_chunk_combine_plain_matches_pallas_sweep(dtype, T, op):
+    """``tests/test_kernels.py``'s chunk_combine sweep, bitwise against
+    the Pallas kernel in interpret mode and the reference oracle."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.RandomState(T + op)
+    a = jnp.asarray(rng.randn(T), jd)
+    b = jnp.asarray(rng.randn(T), jd)
+    _combine_check(a, b, op, td)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", [0, 1, 2, 3])
+def test_chunk_combine_nan_and_inf_like_jnp(dtype, op):
+    """NaN propagates through max/min as in jnp.maximum / jnp.minimum;
+    +/-inf and NaN flow through sum and product (inf - inf is NaN)."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.RandomState(11 + op)
+    av = rng.randn(1000).astype(np.float32)
+    bv = rng.randn(1000).astype(np.float32)
+    av[0::7] = np.nan
+    bv[3::11] = np.nan
+    av[1::13] = np.inf
+    bv[1::13] = -np.inf
+    bv[5::17] = np.inf
+    av[6::19] = -np.inf
+    _combine_check(jnp.asarray(av, jd), jnp.asarray(bv, jd), op, td)
+
+
+def test_chunk_combine_dispatch_routes_cpu_tensors_to_plain_version():
+    a = torch.randn(100)
+    b = torch.randn(100)
+    before = chunk_combine.launches
+    for op in range(4):
+        got = tops.chunk_combine(a, b, op)
+        assert torch.equal(got, chunk_combine_plain(a, b, op))
+        assert torch.equal(got, tops.chunk_combine_ref(a, b, op))
+    assert chunk_combine.launches == before     # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["noncontig", "dtype", "mixed", "shape",
+                                 "2d", "op"])
+def test_chunk_combine_refuses_bad_inputs(bad):
+    a, b, op = torch.zeros(16), torch.zeros(16), 0
+    if bad == "noncontig":
+        a = torch.zeros(32)[::2]
+    elif bad == "dtype":
+        a, b = a.double(), b.double()
+    elif bad == "mixed":
+        b = b.to(torch.bfloat16)
+    elif bad == "shape":
+        b = torch.zeros(15)
+    elif bad == "2d":
+        a, b = a.view(4, 4), b.view(4, 4)
+    elif bad == "op":
+        op = 4
+    with pytest.raises((TypeError, ValueError)):
+        chunk_combine(a, b, op)

@@ -12,6 +12,7 @@ import pytest
 
 import repro.core as J
 import repro_torch.core as T
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 R, N = 8, 8192
 RECORD = json.loads((pathlib.Path(__file__).resolve().parents[1]

@@ -13,6 +13,7 @@ import pytest
 
 import repro.core as J
 import repro_torch.core as T
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings("ignore::UserWarning")
 

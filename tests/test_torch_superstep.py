@@ -28,6 +28,7 @@ from repro_torch.core import daemon as tdaemon
 from repro_torch.core import state_from_numpy, state_to_numpy, tables_from_numpy
 from repro_torch.core.scheduler import Mailbox as TMailbox
 from repro_torch.core.scheduler import rank_superstep as t_rank_superstep
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings("ignore::UserWarning")
 
@@ -110,8 +111,7 @@ def _assert_leaves_equal(got: dict, want: dict, what: str):
 def _chain_workload():
     """A composite two-level all-reduce (a device-chained stage sequence on
     derived lanes) beside a flat all-gather, registered on the reference.
-    The port registers flat rings only, but its scheduler runs the chain
-    hand-off logic on tables carried across with ``tables_from_numpy``."""
+    The tables are carried into the port with ``tables_from_numpy``."""
     kw = dict(n_ranks=R, max_colls=6, max_comms=3, slice_elems=4,
               conn_depth=5, heap_elems=1 << 12, cq_len=8, burst_slices=2,
               superstep_budget=1 << 12)
@@ -131,16 +131,17 @@ def _chain_workload():
 
 
 @functools.lru_cache(maxsize=None)
-def _captured(name):
+def _captured(name, defer=True):
     """[(state, inbox, next_state, outbox)] numpy snapshots from the
-    reference, at the CAPTURE supersteps of one launch."""
+    reference, at the CAPTURE supersteps of one launch (``defer``: the
+    reference's ``defer_relink``)."""
     cfg, kw, rt = (_chain_workload() if name == "chain"
                    else _workload(CONFIGS[name]))
     t = rt._tables
     sh, lt = jdaemon.shared_tables(t), jdaemon.local_tables(t)
     fwd, rev = jnp.asarray(t.fwd_src), jnp.asarray(t.rev_src)
     step = jax.jit(jax.vmap(
-        functools.partial(j_rank_superstep, cfg, sh, defer_relink=True),
+        functools.partial(j_rank_superstep, cfg, sh, defer_relink=defer),
         in_axes=(0, 0, 0)))
     st = jdaemon.launch_prologue(rt.queues.pack_sq(rt.state))
     inbox = jdaemon._load_mailbox(st)
@@ -167,7 +168,8 @@ def test_one_superstep_matches_reference_leaf_by_leaf(name):
     for k, (st, inbox, want_st, want_out) in enumerate(snaps):
         tst = state_from_numpy(st, cfg, "cpu")
         tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
-        got_st, got_out = t_rank_superstep(cfg, sh, lt, tst, tin)
+        got_st, got_out = t_rank_superstep(cfg, sh, lt, tst, tin,
+                                           defer_relink=True)
         _assert_leaves_equal(state_to_numpy(got_st), want_st,
                              f"{name} capture {k} state")
         got_out = {f: (v.view(torch.int16).numpy().view(np.uint16)
@@ -260,3 +262,91 @@ def test_chain_relink_fired_matches_reference():
         np.testing.assert_array_equal(got.numpy(), want)
         fired += int(want.sum())
     assert fired > 0
+
+
+def test_one_superstep_in_step_relink_matches_reference():
+    """With chain tables and the relink IN the step (the reference's
+    default ``defer_relink=False``), one port superstep equals the
+    reference's leaf by leaf, ``heap_in`` rewritten by the hand-offs
+    included."""
+    kw, t, snaps = _captured("chain", defer=False)
+    cfg = TConfig(**kw)
+    sh, lt, _, _ = tables_from_numpy(t, "cpu")
+    relinked = 0
+    for k, (st, inbox, want_st, want_out) in enumerate(snaps):
+        tst = state_from_numpy(st, cfg, "cpu")
+        tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
+        got_st, _ = t_rank_superstep(cfg, sh, lt, tst, tin)
+        _assert_leaves_equal(state_to_numpy(got_st), want_st,
+                             f"in-step capture {k} state")
+        relinked += int((want_st["heap_in"] != st["heap_in"]).any())
+    assert relinked > 0         # the sweep saw in-step hand-off relinks
+
+
+def _chain_body_states(n_steps=64):
+    """The reference's daemon body (vmapped superstep + deferred per-edge
+    relink + exchange + liveness) stepped from a launch prologue over a
+    chained workload until the launch goes not-live: [(state, inbox,
+    next_state, next_inbox)]."""
+    cfg, kw, rt = _chain_workload()
+    t = rt._tables
+    sh, lt = jdaemon.shared_tables(t), jdaemon.local_tables(t)
+    fwd, rev = jnp.asarray(t.fwd_src), jnp.asarray(t.rev_src)
+    body = jax.jit(jdaemon._sim_body_fn(cfg, jdaemon._relink_edges(t)))
+    st = jdaemon.launch_prologue(rt.queues.pack_sq(rt.state))
+    inbox = jdaemon._load_mailbox(st)
+    out = []
+    for _ in range(n_steps):
+        if not bool(st.global_live[0]):     # the reference's loop ends here
+            break
+        nst, ninbox = body(sh, lt, fwd, rev, st, inbox)
+        out.append((_np_tree(st), _np_tree(inbox), _np_tree(nst),
+                    _np_tree(ninbox)))
+        st, inbox = nst, ninbox
+    return kw, t, out
+
+
+def test_sim_body_with_chains_matches_reference():
+    """The daemon body with its deferred relink (static slices / gathers +
+    ``where`` on ``fired``) equals the reference's body superstep by
+    superstep, every leaf and the in-flight mailbox."""
+    kw, t, states = _chain_body_states()
+    cfg = TConfig(**kw)
+    sh, lt, fwd, rev = tables_from_numpy(t, "cpu")
+    body = tdaemon._sim_body_fn(
+        cfg, tdaemon._edge_plan(tdaemon._relink_edges(t), "cpu"))
+    relinked = 0
+    for k, (st, inbox, want_st, want_in) in enumerate(states):
+        tst = state_from_numpy(st, cfg, "cpu")
+        tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
+        got_st, got_in = body(sh, lt, fwd, rev, tst, tin)
+        _assert_leaves_equal(state_to_numpy(got_st), want_st,
+                             f"body step {k}")
+        for f, v in want_in.items():
+            np.testing.assert_array_equal(_bits(_np_tree(got_in)[f]),
+                                          _bits(v), err_msg=f)
+        relinked += int((want_st["heap_in"] != st["heap_in"]).any())
+    assert relinked > 0
+
+
+def test_gated_chain_body_leaves_heap_in_unchanged():
+    """A gated (not-live) body on chain tables changes no leaf — heap_in
+    included — even in supersteps where, live, a chained stage completes
+    and the relink rewrites heap_in."""
+    kw, t, states = _chain_body_states()
+    cfg = TConfig(**kw)
+    sh, lt, fwd, rev = tables_from_numpy(t, "cpu")
+    body = tdaemon._sim_body_fn(
+        cfg, tdaemon._edge_plan(tdaemon._relink_edges(t), "cpu"))
+    checked = 0
+    for st, inbox, want_st, _ in states:
+        if not (want_st["heap_in"] != st["heap_in"]).any():
+            continue
+        tst = state_from_numpy(st, cfg, "cpu")
+        tst = tst._replace(global_live=torch.zeros_like(tst.global_live))
+        before = state_to_numpy(tst)
+        tin = TMailbox(**{f: _to_torch(v) for f, v in inbox.items()})
+        got, _ = body(sh, lt, fwd, rev, tst, tin)
+        _assert_leaves_equal(state_to_numpy(got), before, "gated body")
+        checked += 1
+    assert checked > 0

@@ -22,6 +22,7 @@ from repro.core import tables as jtables
 from repro_torch.core import config as tconfig
 from repro_torch.core import primitives as tprim
 from repro_torch.core import tables as ttables
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KINDS = list(jprim.CollKind)
@@ -172,16 +173,24 @@ def test_runtime_raises_without_a_card_unless_cpu_requested(monkeypatch):
 
 
 def test_composite_and_unported_paths_raise_not_implemented():
+    """Composite registration is ported: two_level lowers to a chain, auto
+    resolves, a plan the zoo lacks raises the reference's ValueError.  The
+    paths still to port raise NotImplementedError naming their ROADMAP.md
+    item."""
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
+    from repro_torch.fabric.ft import TrainController
 
-    rt = OcclRuntime(OcclConfig(n_ranks=4, max_colls=2, max_comms=1,
+    rt = OcclRuntime(OcclConfig(n_ranks=4, max_colls=8, max_comms=3,
                                 slice_elems=4, conn_depth=3,
                                 heap_elems=1024), device="cpu")
     world = rt.communicator(range(4))
-    for algo in ("two_level", "tree", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.register(CollKind.ALL_REDUCE, world, 16, algo=algo)
-    rt.register(CollKind.ALL_REDUCE, world, 16)
-    for call in (rt.tick_fn, rt.device_api, lambda: rt.evict(1)):
+    head = rt.register(CollKind.ALL_REDUCE, world, 16, algo="two_level")
+    with pytest.raises(ValueError, match="no registered composite plan"):
+        rt.register(CollKind.ALL_GATHER, world, 16, algo="tree")
+    auto = rt.register(CollKind.ALL_GATHER, world, 16, algo="auto")
+    chains = rt.stats()["chains"]
+    assert chains[head] == [head, head + 1, head + 2]
+    assert auto not in chains                       # flat ring
+    for call in (rt.tick_fn, rt.device_api, TrainController):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
