@@ -8,15 +8,24 @@ Phases (each raises on failure; the script then exits non-zero):
 1. prints the card's name and power limit (``nvidia-smi``) and builds both
    CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, started
    together);
-2. holds ``fused_primitive`` bit for bit against its plain PyTorch version on
-   the card, at the main path's shapes ([R*L*B, S] of the configs below) in
-   float32 and bfloat16, NaN and +/-inf rows included; times both with CUDA
-   events, replayed from a CUDA graph and issued eagerly;
+2. holds ``fused_burst`` (the superstep's whole slice burst, the main
+   path's kernel) bit for bit against its plain PyTorch version on the
+   card, outbox and heap_out, at the main paths' shapes (adversarial
+   8x1x1 at slice 64, flat 8x1x8 and composite 16x{1,2}x8 at 1024) in
+   float32 and bfloat16, over seeded descriptor sets with wrapped slots,
+   partial bursts, ranks not live, invalid lanes, overlapping windows of two
+   lanes, windows clamped at both ends, odd window offsets, a padded
+   connector rank stride, NaN and +/-inf; times kernel and plain version
+   from a CUDA graph, rotating descriptor sets over windows spread across a
+   real-size heap, beside its bound; then the same for the ``[N, S]``
+   ``fused_primitive`` entry (no main-path caller), timed also eagerly;
 3. holds ``chunk_combine`` bit for bit against its plain version at T in
    {8, 1000, 5000, 2^22}, aligned and at an odd storage offset, float32 and
    bfloat16, ops 0..3, NaN and +/-inf entries; times the kernel, the plain
    version and the one PyTorch call computing the same function at T = 2^22,
-   replayed from a CUDA graph over inputs that do not fit in L2;
+   replayed from a CUDA graph over inputs that do not fit in L2, and the
+   kernel and ``torch.add`` in turns (kernel, add, add, kernel; five
+   rounds) with their spread;
 4. the main paths, each driven with the kernel launch counts set to 0 just
    before it and read just after:
    a. the adversarial-orders workload (``examples/adversarial_orders.py``):
@@ -45,9 +54,9 @@ Phases (each raises on failure; the script then exits non-zero):
    picks the measured winner (``--save-calibration`` writes the fit);
 7. one profiled launch of 32 supersteps each at the flat and the composite
    real-size configs: host wall time against device kernel time per
-   superstep, the device's idle share, the chain relink's share; the launch
-   counter's rise in each launch must equal the ``fused_primitive`` kernels
-   the profiler saw;
+   superstep, the device's idle share, the 15 kernels that take the most
+   device time, the chain relink's share; the ``fused_burst`` counter's rise
+   in each launch must equal the profiler's count of that kernel;
 8. a ``{"kernels": [...]}`` JSON line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -60,6 +69,7 @@ import argparse
 import itertools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -119,7 +129,7 @@ def card_line() -> str:
 
 
 def burst_rows(cfg: dict) -> tuple[int, int]:
-    """[R*L*B, S]: the fused_primitive shape the scheduler launches."""
+    """[R*L*B, S]: the rows of one superstep's slice burst."""
     return (cfg["n_ranks"] * cfg["max_comms"] * cfg.get("burst_slices", 1),
             cfg["slice_elems"])
 
@@ -201,6 +211,18 @@ def time_ms(fn) -> tuple[float, float]:
     b.record()
     torch.cuda.synchronize()
     eager = a.elapsed_time(b) / TIME_ITERS
+    return graph_ms(fn), eager
+
+
+def graph_ms(fn) -> float:
+    """Device ms per call of ``fn``: ``TIME_ITERS`` calls captured in one
+    CUDA graph, replayed once to warm up and once under CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(TIME_ITERS):
@@ -211,7 +233,7 @@ def time_ms(fn) -> tuple[float, float]:
     graph.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / TIME_ITERS, eager
+    return a.elapsed_time(b) / TIME_ITERS
 
 
 def print_ptxas(lib) -> None:
@@ -266,6 +288,182 @@ def phase_fused_primitive(device) -> dict:
             "library_ms": None}
 
 
+# The burst kernel's shapes: (name, R, L, B, SL, C, K, real heap_elems).
+BURST_SHAPES = (
+    ("adversarial", ADV["n_ranks"], 1, 1, ADV["slice_elems"],
+     ADV["max_colls"], ADV["conn_depth"], ADV["heap_elems"]),
+    ("flat", REAL["n_ranks"], 1, REAL["burst_slices"], REAL["slice_elems"],
+     REAL["max_colls"], REAL["conn_depth"], REAL["heap_elems"]),
+    *((f"composite {a}", COMP["n_ranks"], lanes, COMP["burst_slices"],
+       COMP["slice_elems"], COMP["max_colls"], COMP["conn_depth"],
+       COMP["heap_elems"]) for a, lanes in COMP_LANES.items()))
+BURST_CHECKS = 3               # hazard descriptor sets per shape and dtype
+BURST_SETS = 128               # descriptor sets rotated per timing
+RING_PRIMS = (2, 5, 6, 8)      # SEND, RECV_COPY_SEND, RECV_REDUCE_SEND,
+                               # RECV_REDUCE_COPY_SEND: an all-reduce ring
+
+
+def burst_descriptors(rng, R, L, B, SL, C, K, H, hazards: bool):
+    """Seeded numpy (lanes, tables) of one burst.  ``hazards``: wrapped
+    slots, partial bursts, rank 0 not live, invalid lanes, two lanes on one
+    window, offsets below 0 and past H - B*SL, odd offsets.  Otherwise the
+    main path's kind of burst: full bursts of an all-reduce ring's
+    primitives, distinct collectives per lane, windows at slice-aligned
+    offsets spread over the heap row."""
+    from repro_torch.core import primitives as P
+
+    W = B * SL
+    i32 = lambda a: np.asarray(a, np.int32)
+    if hazards:
+        coll = rng.randint(0, C, (R, L))
+        for l in range(1, L):
+            same = rng.rand(R) < 0.3
+            coll[same, l] = coll[same, l - 1]
+        n = rng.randint(0, B + 1, (R, L))
+        prim = rng.randint(0, len(P.PRIM_RECV), (R, L))
+        write = rng.rand(R, L) < 0.7
+        write[0] = False
+        invalid = rng.rand(R, L) < 0.15
+        coll[invalid], n[invalid], write[invalid] = 0, 0, False
+        in_off = rng.randint(-2 * W, H + W, (R, C))
+        out_off = rng.randint(-2 * W, H + W, (R, C))
+    else:
+        coll = np.stack([rng.permutation(C)[:L] for _ in range(R)])
+        n = np.full((R, L), B)
+        prim = rng.choice(RING_PRIMS, (R, L))
+        write = P.PRIM_COPY[prim] > 0
+        region = (H - W) // C // SL
+        in_off = (np.arange(C) * region
+                  + rng.randint(0, region - 16, (R, C))) * SL
+        out_off = (np.arange(C) * region
+                   + rng.randint(0, region - 16, (R, C))) * SL
+    lanes = dict(coll=i32(coll), tail=i32(rng.randint(0, 3 * K, (R, L))),
+                 rnd=i32(rng.randint(0, 2, (R, L))),
+                 sl=i32(rng.randint(0, 2, (R, L))),
+                 chunk=i32(rng.randint(0, 2, (R, L))), prim=i32(prim),
+                 n=i32(n), write=np.asarray(write, bool))
+    tables = dict(in_off=i32(in_off), out_off=i32(out_off),
+                  n_rounds=i32(rng.randint(1, 3, C)),
+                  n_slices=i32(rng.randint(1, 4, C)),
+                  in_chunked=i32(rng.randint(0, 2, C)),
+                  out_chunked=i32(rng.randint(0, 2, C)),
+                  op=i32(rng.randint(0, 4, C)))
+    return lanes, tables
+
+
+def burst_args(lanes, tables, device):
+    import torch
+    from repro_torch.core import primitives as P
+    from repro_torch.kernels import fused_slice as fs
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return (fs.BurstLanes(**{f: t(v) for f, v in lanes.items()}),
+            fs.BurstTables(**{f: t(v) for f, v in tables.items()},
+                           prim_recv=t(P.PRIM_RECV),
+                           prim_reduce=t(P.PRIM_REDUCE),
+                           prim_reads_in=t(P.PRIM_READS_IN)))
+
+
+def burst_bytes(lanes, B, SL, size) -> int:
+    """Bytes one burst must move: the outbox rows, the slot rows and
+    heap_in rows its flags read, the heap_out rows it writes."""
+    from repro_torch.core import primitives as P
+
+    prim = lanes["prim"]
+    recv = P.PRIM_RECV[prim] > 0
+    reduce = P.PRIM_REDUCE[prim] > 0
+    reads = P.PRIM_READS_IN[prim] > 0
+    need_p = recv | reduce
+    need_x = reduce | (~recv & reads)
+    nw = np.where(lanes["write"], np.clip(lanes["n"], 0, B), 0)
+    rows_per_lane = B * (1 + need_p + need_x) + nw
+    return int(rows_per_lane.sum()) * SL * size
+
+
+def random_floats(shape, dtype, device, g):
+    """Normal values with NaN, +inf and -inf entries sprinkled in."""
+    import torch
+
+    x = torch.randn(shape, generator=g, device=device)
+    flat = x.view(-1)
+    flat[3::29] = float("nan")
+    flat[5::31] = float("inf")
+    flat[7::37] = -float("inf")
+    return x.to(dtype)
+
+
+def phase_fused_burst(device) -> dict:
+    """fused_burst against fused_burst_plain (outbox and heap_out), then
+    timed at each main path's shape."""
+    import torch
+    from repro_torch.kernels import fused_slice as fs
+
+    errs, checked = [], 0
+    g = torch.Generator(device=device).manual_seed(14)
+    for name, R, L, B, SL, C, K, _ in BURST_SHAPES:
+        W = B * SL
+        H = 5 * W + 13                     # odd row: unaligned windows
+        rng = np.random.RandomState(R * 1000 + L * 100 + B)
+        for dtype in (torch.float32, torch.bfloat16):
+            for i in range(BURST_CHECKS):
+                payload = random_floats((R, C, K, SL), dtype, device, g)
+                if i == 1:                 # the inbox commit's rank stride
+                    payload = torch.cat(
+                        [payload.reshape(R, C * K, SL),
+                         torch.zeros(R, 1, SL, dtype=dtype, device=device)],
+                        1)[:, :C * K].reshape(R, C, K, SL)
+                heap_in = random_floats((R, H), dtype, device, g)
+                heap_out = random_floats((R, H), dtype, device, g)
+                args = burst_args(*burst_descriptors(rng, R, L, B, SL, C, K,
+                                                     H, True), device)
+                h_k, h_p = heap_out.clone(), heap_out.clone()
+                got = fs.fused_burst(payload, heap_in, h_k, B, *args)
+                torch.cuda.synchronize()
+                want = fs.fused_burst_plain(payload, heap_in, h_p, B, *args)
+                errs.append(compare_bits(got, want))
+                errs.append(compare_bits(h_k, h_p))
+                checked += 1
+    print(f"[kernels] fused_burst: outbox and heap_out bitwise equal to "
+          f"plain in all {checked} cases ({[s[0] for s in BURST_SHAPES]}, "
+          f"float32 and bfloat16, {BURST_CHECKS} hazard sets each)")
+    times = {}
+    for name, R, L, B, SL, C, K, heap_elems in BURST_SHAPES:
+        W = B * SL
+        H = heap_elems + W
+        dtype = torch.float32
+        rng = np.random.RandomState(7 + R + L)
+        payload = torch.randn((R, C, K, SL), generator=g, device=device)
+        heap_in = torch.randn((R, H), generator=g, device=device)
+        heap_out = torch.zeros((R, H), device=device)
+        sets = [burst_descriptors(rng, R, L, B, SL, C, K, H, False)
+                for _ in range(BURST_SETS)]
+        nbytes = float(np.mean([burst_bytes(ln, B, SL, 4) for ln, _ in sets]))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        dev_sets = [burst_args(ln, tb, device) for ln, tb in sets]
+        rot = itertools.cycle(dev_sets)
+        k_ms, _ = time_ms(lambda: fs.fused_burst(payload, heap_in, heap_out,
+                                                 B, *next(rot)))
+        p_ms, _ = time_ms(lambda: fs.fused_burst_plain(
+            payload, heap_in, heap_out, B, *next(rot)))
+        times[name] = dict(shape=[R, L, B, SL], ms=k_ms, plain_ms=p_ms,
+                           bound_ms=bound)
+        print(f"[kernels] fused_burst {name} R={R} L={L} B={B} SL={SL} "
+              f"float32, per call in a graph over {BURST_SETS} rotating "
+              f"descriptor sets on a {H}-element heap row: kernel "
+              f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {bound:.7f} ms "
+              f"(bytes, {nbytes / 1e6:.4f} MB)")
+        del payload, heap_in, heap_out, dev_sets, rot
+        free_card()
+    flat = times["flat"]
+    return {"name": "fused_burst", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_primitive.cu",
+            "replaces": "src/repro/kernels/fused_slice.py:58",
+            "shape": flat["shape"], "dtype": "float32",
+            "max_abs_err": max(errs), "ms": flat["ms"],
+            "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "by_shape": times}
+
+
 def combine_inputs(t: int, offset: int, dtype, device, seed: int):
     """a, b: [t] views starting ``offset`` elements into their storage,
     with NaN, +inf and -inf entries."""
@@ -283,6 +481,26 @@ def combine_inputs(t: int, offset: int, dtype, device, seed: int):
 
 
 LIBRARY_CALLS = ("add", "maximum", "minimum", "mul")
+TURN_ROUNDS = 5
+
+
+def in_turns(kernel, library) -> dict:
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel) for ``TURN_ROUNDS`` rounds, each a graph of ``TIME_ITERS``
+    calls.  The spread is the larger of the two ranges; the kernel counts
+    as slower only when its median exceeds the library's by more."""
+    ks, ls = [], []
+    for _ in range(TURN_ROUNDS):
+        ks.append(graph_ms(kernel))
+        ls.append(graph_ms(library))
+        ls.append(graph_ms(library))
+        ks.append(graph_ms(kernel))
+    km, lm = float(np.median(ks)), float(np.median(ls))
+    spread = max(max(ks) - min(ks), max(ls) - min(ls))
+    return {"kernel_ms": ks, "library_ms": ls,
+            "kernel_median_ms": km, "library_median_ms": lm,
+            "gap_ms": km - lm, "spread_ms": spread,
+            "slower": km - lm > spread}
 
 
 def phase_chunk_combine(device) -> dict:
@@ -319,14 +537,24 @@ def phase_chunk_combine(device) -> dict:
         l_ms, _ = time_ms(lambda: torch.add(*next(rot)))
         nbytes = 3 * CC_BIG * sets[0][0].element_size()
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        times[dtype] = (k_ms, p_ms, l_ms if lib_equal else None, bound)
+        turns = in_turns(lambda: cc.chunk_combine(*next(rot), 0),
+                         lambda: torch.add(*next(rot)))
+        times[dtype] = (k_ms, p_ms, l_ms if lib_equal else None, bound,
+                        turns)
         print(f"[kernels] chunk_combine [{CC_BIG}] {str(dtype)[6:]} op 0, "
               f"per call in a graph over {CC_SETS} rotating input sets: "
               f"kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, torch.add "
               f"{l_ms:.6f} ms, bound {bound:.6f} ms (bytes); library calls "
               f"bitwise equal to the kernel for ops 0..3: {lib_equal}")
-    k_ms, p_ms, l_ms, bound = times[torch.float32]
-    kb, pb, lb, bb = times[torch.bfloat16]
+        print(f"[kernels] chunk_combine [{CC_BIG}] {str(dtype)[6:]} in turns "
+              f"(kernel, add, add, kernel) x {TURN_ROUNDS}: kernel "
+              f"{turns['kernel_ms']}, torch.add {turns['library_ms']}; "
+              f"medians {turns['kernel_median_ms']:.6f} / "
+              f"{turns['library_median_ms']:.6f} ms, kernel - add "
+              f"{turns['gap_ms']:+.6f} ms, spread {turns['spread_ms']:.6f} "
+              f"ms: slower beyond the spread: {turns['slower']}")
+    k_ms, p_ms, l_ms, bound, turns = times[torch.float32]
+    kb, pb, lb, bb, turns_b = times[torch.bfloat16]
     return {"name": "chunk_combine", "route": "cuda",
             "source": "src/repro_torch/csrc/chunk_combine.cu",
             "replaces": "src/repro/kernels/chunk_combine.py:38",
@@ -334,8 +562,9 @@ def phase_chunk_combine(device) -> dict:
             "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": l_ms,
             "library_call": "torch.add",
+            "in_turns": turns,
             "bf16": {"ms": kb, "plain_ms": pb, "library_ms": lb,
-                     "bound_ms": bb},
+                     "bound_ms": bb, "in_turns": turns_b},
             "smoke_launches": cc.chunk_combine.launches,
             "note": "no path of the runtime calls chunk_combine (the "
                     "reference has no caller of ops.chunk_combine either), "
@@ -755,51 +984,63 @@ def phase_algos(device, card: str, save_path) -> "object":
 # phase 7: where the time goes (short profiled launches at real size)
 # ---------------------------------------------------------------------------
 
+BURST_KERNEL = re.compile(r"\bfused_burst_kernel<")
+TOP_KERNELS = 15
+
+
 def profile_launch(rt, tag: str, card: str) -> dict:
     """Profile one ``launch_once`` (data already on the device): host wall
-    time against device kernel time per superstep, the device's idle share
-    and the kernel count.  Raises unless the launch counter rose by exactly
-    the number of ``fused_primitive`` kernels the profiler saw run."""
+    time against device kernel time per superstep, the device's idle share,
+    the kernel count and the kernels that take the most device time.
+    Raises unless the ``fused_burst`` counter rose by exactly the number of
+    burst kernels (matched by their name) the profiler saw run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import fused_slice as fs
 
     rt.launch_once()                    # flushes the payloads, warms up
     torch.cuda.synchronize()
-    counted = fs.fused_primitive.launches
+    counted = fs.fused_burst.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rt.launch_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counted = fs.fused_primitive.launches - counted
+    counted = fs.fused_burst.launches - counted
     ran = rt.launch_history[-1]["launch_steps"]
-    dev_us = n_kernels = fused_us = 0.0
+    dev_us = n_kernels = burst_us = 0.0
     traced = 0
+    kernels = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             dev_us += us
             n_kernels += e.count
-            if "fused_primitive" in e.key:
-                fused_us += us
+            kernels.append((us, e.count, e.key))
+            if BURST_KERNEL.search(e.key):
+                burst_us += us
                 traced += e.count
-    print(f"[profile] {tag}: fused_primitive launches in the profiled "
-          f"launch: counter {counted}, profiler {traced}")
+    print(f"[profile] {tag}: fused_burst launches in the profiled launch: "
+          f"counter {counted}, profiler {traced}")
     assert counted == traced > 0, (counted, traced)
     res = {"supersteps": ran, "wall_ms_per_superstep": wall * 1e3 / ran,
            "device_ms_per_superstep": dev_us / 1e3 / ran,
            "device_idle_share": 1.0 - dev_us / 1e6 / wall,
            "kernels_per_superstep": n_kernels / ran,
-           "fused_primitive_device_ms_per_superstep": fused_us / 1e3 / ran}
+           "fused_burst_device_ms_per_superstep": burst_us / 1e3 / ran,
+           "top": [(k[:120], count / ran, us / 1e3 / ran) for us, count, k
+                   in sorted(kernels, reverse=True)[:TOP_KERNELS]]}
     print(f"[profile] {tag} launch of {ran} supersteps: "
           f"{res['wall_ms_per_superstep']:.4f} ms wall per superstep, "
           f"{res['device_ms_per_superstep']:.4f} ms device kernel time "
-          f"({res['kernels_per_superstep']:.1f} kernels, fused_primitive "
-          f"{res['fused_primitive_device_ms_per_superstep']:.5f} ms), "
+          f"({res['kernels_per_superstep']:.1f} kernels, fused_burst "
+          f"{res['fused_burst_device_ms_per_superstep']:.5f} ms), "
           f"device idle share {res['device_idle_share']:.4f} [{card}]")
+    for i, (key, count, ms) in enumerate(res["top"]):
+        print(f"[profile] {tag} top {i + 1}: {ms:.6f} ms and {count:.2f} "
+              f"launches per superstep: {key}")
     return res
 
 
@@ -878,23 +1119,27 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.build_all([fs.LIBRARY, cc.LIBRARY])
-    print(f"[kernels] built fused_primitive and chunk_combine in "
+    print(f"[kernels] built fused_primitive.cu (fused_burst, "
+          f"fused_primitive) and chunk_combine.cu in "
           f"{time.perf_counter() - t0:.1f} s (sm_90a, one nvcc each)")
     print_ptxas(fs.LIBRARY)
     print_ptxas(cc.LIBRARY)
 
+    burst_entry = phase_fused_burst(device)
     fused_entry = phase_fused_primitive(device)
     combine_entry = phase_chunk_combine(device)
 
+    counters = (fs.fused_burst, fs.fused_primitive, cc.chunk_combine)
     paths = {}
 
     def main_path(name, fn):
-        fs.fused_primitive.launches = cc.chunk_combine.launches = 0
+        for k in counters:
+            k.launches = 0
         res = fn()
-        paths[name] = (fs.fused_primitive.launches,
-                       cc.chunk_combine.launches)
-        print(f"[path] {name}: fused_primitive launches {paths[name][0]}, "
-              f"chunk_combine launches {paths[name][1]}")
+        paths[name] = tuple(k.launches for k in counters)
+        print(f"[path] {name}: fused_burst launches {paths[name][0]}, "
+              f"fused_primitive launches {paths[name][1]}, chunk_combine "
+              f"launches {paths[name][2]}")
         assert paths[name][0] > 0, (name, paths[name])
         return res
 
@@ -911,11 +1156,15 @@ def main(argv=None) -> int:
         r["supersteps"] for v in comp.values() for r in v["runs"])
     phase_profile(device, card)
 
-    fused_entry["launches"] = sum(p[0] for p in paths.values())
-    fused_entry["launches_by_path"] = {k: p[0] for k, p in paths.items()}
-    combine_entry["launches"] = sum(p[1] for p in paths.values())
+    entries = (burst_entry, fused_entry, combine_entry)
+    for i, entry in enumerate(entries):
+        entry["launches"] = sum(p[i] for p in paths.values())
+        entry["launches_by_path"] = {k: p[i] for k, p in paths.items()}
+    fused_entry["note"] = ("the [N, S] counterpart of the Pallas contract; "
+                           "no runtime path calls it since the scheduler's "
+                           "burst is one fused_burst launch")
     print(card)
-    print(json.dumps({"kernels": [fused_entry, combine_entry]}))
+    print(json.dumps({"kernels": list(entries)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -300,7 +300,7 @@ class _ChunkRunner:
     tensors run eagerly.  Replay executes exactly the captured bodies, so
     trajectories are bit-identical to eager execution.
 
-    The ``fused_primitive`` wrapper counts its launches while the chunk is
+    The ``fused_burst`` wrapper counts its launches while the chunk is
     captured; that count (the kernel launches the graph holds) is taken
     off the counter again, since the capture itself runs nothing, and
     added once per replay."""
@@ -323,7 +323,7 @@ class _ChunkRunner:
             if dst is not src:
                 dst.copy_(src)
         self.graph.replay()
-        fused_slice.fused_primitive.launches += self.per_replay
+        fused_slice.fused_burst.launches += self.per_replay
         st_out, in_out, steps = self.out
         return (DaemonState(*[self._own(t) for t in st_out]),
                 Mailbox(*[t.clone() for t in in_out]), steps.clone())
@@ -336,16 +336,16 @@ class _ChunkRunner:
         st_in = DaemonState(*[self._own(t) for t in st])
         in_in = Mailbox(*[t.clone() for t in inbox])
         self.static = (*st_in, *in_in)
-        launches = fused_slice.fused_primitive.launches
+        launches = fused_slice.fused_burst.launches
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.out = _run_bodies(self.body, *self.tables, st_in, in_in,
                                    self.chunk)
-        self.per_replay = fused_slice.fused_primitive.launches - launches
-        fused_slice.fused_primitive.launches = launches
+        self.per_replay = fused_slice.fused_burst.launches - launches
+        fused_slice.fused_burst.launches = launches
         if self.per_replay <= 0:
             raise RuntimeError("the captured superstep chunk launches no "
-                               "fused_primitive kernel")
+                               "fused_burst kernel")
         self.graph = graph
 
 

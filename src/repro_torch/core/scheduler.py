@@ -25,9 +25,10 @@ superstep.  The translation rules that keep it so:
   column and is dropped, and no scatter ever relies on a duplicate-index
   winner.  The inbox payload scatter writes into a sentinel row that is
   sliced off.
-* **Clamped windows.**  ``lax.dynamic_slice`` clamps its start so the window
-  fits; the heap windows clamp their start the same way (with the heap's
-  ``B*SLICE`` scratch padding the clamp never fires on real offsets).
+* **Clamped windows.**  ``lax.dynamic_slice`` counts a negative start from
+  the end of the row, then clamps it so the window fits; the burst's heap
+  windows are placed the same way (with the heap's ``B*SLICE`` scratch
+  padding neither rule fires on real offsets).
 * **int32.**  Queue keys, strides and counters stay int32 (wrapping like
   the reference); only gather/scatter indices are widened to int64.
 * **In place.**  The per-lane output windows are written into ``heap_out``
@@ -37,9 +38,10 @@ superstep.  The translation rules that keep it so:
   :func:`rank_superstep` masks those writes, so a superstep run after the
   fabric went not-live leaves both heaps untouched.
 
-The slice math of the burst (``op(payload, local)`` where-chain) always goes
-through :func:`repro_torch.kernels.ops.fused_primitive_batch`, which launches
-the hand-written CUDA kernel for tensors on the card.
+The slice burst (slot and window reads, the ``op(payload, local)``
+where-chain, the ``heap_out`` windows and the outbox) is one call of
+:func:`repro_torch.kernels.ops.fused_burst`, which launches the hand-written
+CUDA kernel for tensors on the card.
 """
 from __future__ import annotations
 
@@ -408,14 +410,6 @@ def fetch_sqe(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
 # phase C: all lanes
 # ---------------------------------------------------------------------------
 
-def _window_index(base: torch.Tensor, width: int, heap_len: int
-                  ) -> torch.Tensor:
-    """[R, width] int64 indices of the ``lax.dynamic_slice`` window starting
-    at ``base`` [R], with the start clamped so the window fits."""
-    start = torch.clamp(base, 0, heap_len - width).long()
-    return start[:, None] + _arange(width, base.device, torch.int64)
-
-
 def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
                local: LocalTables, live: torch.Tensor | None = None,
                defer_relink: bool = False
@@ -432,12 +426,11 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
     one meaning for it, so it does not come across.
 
     Returns (state, moved_any [R], outbox)."""
-    K, SL, B = cfg.conn_depth, cfg.slice_elems, cfg.burst_slices
+    K, B = cfg.conn_depth, cfg.burst_slices
     C, L = cfg.max_colls, cfg.max_comms
     R = st.cur.shape[0]
     dev = st.cur.device
     rr = _arange(R, dev, torch.int64)[:, None]
-    bidx = _arange(B, dev, _I32)
 
     eligible, key = _lane_keys(cfg, st, shared, local)
     pos = _lane_positions(key)
@@ -486,9 +479,7 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
     primi = prim.long()
     needs_recv = shared.prim_recv[primi] > 0
     needs_send = shared.prim_send[primi] > 0
-    does_reduce = shared.prim_reduce[primi] > 0
     does_copy = shared.prim_copy[primi] > 0
-    reads_in = shared.prim_reads_in[primi] > 0
 
     nsl = shared.n_slices[cl]
     tail_c = _take(st.tail, cl)
@@ -508,46 +499,20 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
         stalled = denied
 
     # --- execute the fused actions on the burst (paper Fig. 3) -----------
-    slots = ((tail_c[:, :, None] + bidx) % K).long()           # [R, L, B]
-    recv_val = st.payload[rr[:, :, None], cl[:, :, None], slots]
-    rnd = _take(st.ctx_round, cl)
-    chunk_stride = shared.n_rounds[cl] * nsl * SL
-    within = (rnd * nsl + sl) * SL
-    in_base = (_take(st.in_off, cl)
-               + torch.where(shared.in_chunked[cl] > 0, chunk, 0)
-               * chunk_stride + within)
-    out_base = (_take(st.out_off, cl)
-                + torch.where(shared.out_chunked[cl] > 0, chunk, 0)
-                * chunk_stride + within)
-    W = B * SL
-    H = st.heap_in.shape[1]
-    in_idx = torch.cat([_window_index(in_base[:, l], W, H)
-                        for l in range(L)], dim=1)            # [R, L*W]
-    in_val = torch.gather(st.heap_in, 1, in_idx).reshape(R, L, B, SL)
-
-    flags = torch.stack([needs_recv.to(_I32), does_reduce.to(_I32),
-                         reads_in.to(_I32), shared.op[cl]], dim=-1)
-    flags = flags[:, :, None, :].expand(R, L, B, 4).reshape(R * L * B, 4)
-    value = kops.fused_primitive_batch(
-        recv_val.reshape(R * L * B, SL), in_val.reshape(R * L * B, SL),
-        flags.contiguous()).reshape(R, L, B, SL)
-
-    # Per-lane [B*SL] read-modify-write windows, in lane order (a later
-    # lane's window wins where two overlap, as in the reference's
-    # sequential dynamic_update_slice loop), updated in place.
+    # One call: the slot rows and heap_in windows are read, combined, and
+    # written to the outbox and (copy lanes, rows b < n) in place into
+    # heap_out, a later lane winning where two windows overlap.
     write_out = gate & does_copy
     if live is not None:
         write_out = write_out & live[:, None]
-    out_limit = torch.where(write_out, n, 0) * SL             # [R, L]
-    vals = value.reshape(R, L, W).to(st.heap_out.dtype)
-    span = _arange(W, dev, torch.int64)
-    heap_out = st.heap_out
-    for l in range(L):
-        idx = _window_index(out_base[:, l], W, H)
-        window = torch.gather(heap_out, 1, idx)
-        blend = torch.where(span[None, :] < out_limit[:, l, None],
-                            vals[:, l], window)
-        heap_out.scatter_(1, idx, blend)
+    rnd = _take(st.ctx_round, cl)
+    fwd_payload = kops.fused_burst(
+        st.payload, st.heap_in, st.heap_out, B,
+        kops.BurstLanes(c, tail_c, rnd, sl, chunk, prim, n, write_out),
+        kops.BurstTables(st.in_off, st.out_off, shared.n_rounds,
+                         shared.n_slices, shared.in_chunked,
+                         shared.out_chunked, shared.op, shared.prim_recv,
+                         shared.prim_reduce, shared.prim_reads_in))
 
     n_recv = torch.where(gate & needs_recv, n, 0)
     n_send = torch.where(gate & needs_send, n, 0)
@@ -564,7 +529,6 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
 
     cg = torch.where(gate, c, C)                              # gate-gated
     st = st._replace(
-        heap_out=heap_out,
         tail=st.tail.scatter_add(1, cl, n_recv),
         head=st.head.scatter_add(1, cl, n_send),
         ctx_step=_set_drop(st.ctx_step, cg, next_step),
@@ -653,7 +617,7 @@ def lanes_step(cfg: OcclConfig, st: DaemonState, shared: SharedTables,
     outbox = Mailbox(
         fwd_count=n_send,
         fwd_coll=c,
-        fwd_payload=value.to(st.payload.dtype),
+        fwd_payload=fwd_payload,
         rev_count=n_recv,
         rev_coll=c,
     )
