@@ -11,13 +11,17 @@ Phases (each raises on failure; the script then exits non-zero):
 2. holds ``fused_burst`` (the superstep's whole slice burst, the main
    path's kernel) bit for bit against its plain PyTorch version on the
    card, outbox and heap_out, at the main paths' shapes (adversarial
-   8x1x1 at slice 64, flat 8x1x8 and composite 16x{1,2}x8 at 1024) in
+   8x1x1 at slice 64, flat 8x1x8, composite 16x{1,2}x8 and the ViT
+   training cell's 4x1x8 at 1024, the record's dense grad-sync cell's
+   4x1x8 at 512) in
    float32 and bfloat16, over seeded descriptor sets with wrapped slots,
    partial bursts, ranks not live, invalid lanes, overlapping windows of two
    lanes, windows clamped at both ends, odd window offsets, a padded
    connector rank stride, NaN and +/-inf; times kernel and plain version
    from a CUDA graph, rotating descriptor sets over windows spread across a
-   real-size heap, beside its bound; then the same for the ``[N, S]``
+   real-size heap, beside its bound, and at the ViT cell's shape once more
+   on its whole 4 x 692308224 heap (flat offsets past 2^31); then the same
+   for the ``[N, S]``
    ``fused_primitive`` entry (no main-path caller), timed also eagerly;
 3. holds ``chunk_combine`` bit for bit against its plain version at T in
    {8, 1000, 5000, 2^22}, aligned and at an odd storage offset, float32 and
@@ -52,12 +56,29 @@ Phases (each raises on failure; the script then exits non-zero):
    torus / hybrid and broadcast ring / tree) timed on the card, fitted with
    the port's cost model; prints alpha, beta, gamma and whether ``auto``
    picks the measured winner (``--save-calibration`` writes the fit);
-7. one profiled launch of 32 supersteps each at the flat and the composite
-   real-size configs: host wall time against device kernel time per
-   superstep, the device's idle share, the 15 kernels that take the most
-   device time, the chain relink's share; the ``fused_burst`` counter's rise
-   in each launch must equal the profiler's count of that kernel;
-8. a ``{"kernels": [...]}`` JSON line, the card line again, and the last
+7. the training path (main paths, counted like phase 4):
+   a. the record's dense grad-sync cell (``BENCH_collectives.json``
+      training.dense: qwen3-0.6b reduced, dp 4, 7 buckets, burst 8, skewed
+      lanes): the overlapped grads step at 8 ticks per boundary (244
+      supersteps, 20 exposed, 224 hidden, 30 tick calls), then at 0
+      (barrier: 196, all exposed, 41 tick calls);
+   b. ViT-Base at full width and depth (86.5 M parameters) over 4
+      simulated DP ranks, global batch 128, DDP-sized buckets (6553600
+      elements), slice 1024, burst 8: two host-driven steps of
+      ``launch/train.py::run_occl_dp``, then one overlapped grads step at 8
+      ticks per boundary and one at 0; each step's OCCL-averaged grads held
+      to the float64 average of the per-rank grads (rtol 1e-4, atol 1e-6)
+      and every bucket completed once per rank; wall per step, supersteps,
+      ``fused_burst`` launches, samples/s and the record's modeled step;
+8. one profiled launch of 32 supersteps each at the flat and the composite
+   real-size configs and at the ViT cell's runtime shape (R=4): host wall
+   time against device kernel time per superstep, the device's idle share,
+   the 15 kernels that take the most device time, the chain relink's
+   share; the ``fused_burst`` counter's rise in each launch must equal the
+   profiler's count of that kernel.  The profiles run last: a step run in
+   the same process after the profiler has run paid more wall per
+   superstep;
+9. a ``{"kernels": [...]}`` JSON line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 It fails without a CUDA device, and when run outside a checkout of the
@@ -119,6 +140,31 @@ A2A_STEPS = {"ring": 272, "two_level": 100}         # n 4096, conn 64, skew
 A2A_MIX_STEPS = 284
 EVICT_STEPS = 520
 RECORD_ITERS = 3
+# The training path: ViT-Base (src/repro_torch/configs/vit_base.py) at full
+# width and depth, 4 simulated DP ranks, global batch 128, PyTorch DDP's
+# default bucket (bucket_cap_mb=25 in float32), the real-size cells' slice
+# and burst.  Its runtime (OcclGradSync's own formula): C=9 buckets, K=24,
+# a heap of 692308224 elements per rank.
+VIT = dict(arch="vit-base", dp=4, batch=128, bucket_elems=6_553_600,
+           slice_elems=1024, burst_slices=8)
+VIT_RUNTIME = dict(R=4, C=9, K=24, heap_elems=692_308_224)
+VIT_HOST_STEPS = 2
+VIT_OVERLAP_TICKS = 8
+VIT_DRAIN_ITERS = 1 << 15     # drain ticks of 16 supersteps (about 7000 run)
+# BENCH_collectives.json "training" -> "dense": qwen3-0.6b reduced, dp 4,
+# batch 4, seq 16, 7 buckets, burst 8, 2 bandwidth groups, caps 8 / 2; the
+# overlap step (8 ticks per boundary), then the barrier step (0).
+DENSE_RECORD = dict(dp=4, batch=4, seq=16, ticks_per_boundary=8,
+                    sync=dict(bucket_elems=16384, slice_elems=512,
+                              burst_slices=8, bandwidth_groups=2,
+                              intra_burst_cap=8, inter_burst_cap=2))
+# Its runtime (OcclGradSync's formula): C=8, K=24, heap 867584 per rank.
+DENSE_RUNTIME = dict(R=4, C=8, K=24, heap_elems=867_584)
+DENSE_STEPS = {
+    "overlap": {"supersteps": 244, "exposed_supersteps": 20,
+                "hidden_supersteps": 224, "tick_calls": 30},
+    "barrier": {"supersteps": 196, "exposed_supersteps": 196,
+                "hidden_supersteps": 0, "tick_calls": 41}}
 
 
 def card_line() -> str:
@@ -296,7 +342,13 @@ BURST_SHAPES = (
      REAL["max_colls"], REAL["conn_depth"], REAL["heap_elems"]),
     *((f"composite {a}", COMP["n_ranks"], lanes, COMP["burst_slices"],
        COMP["slice_elems"], COMP["max_colls"], COMP["conn_depth"],
-       COMP["heap_elems"]) for a, lanes in COMP_LANES.items()))
+       COMP["heap_elems"]) for a, lanes in COMP_LANES.items()),
+    ("dense record", DENSE_RUNTIME["R"], 1,
+     DENSE_RECORD["sync"]["burst_slices"], DENSE_RECORD["sync"]["slice_elems"],
+     DENSE_RUNTIME["C"], DENSE_RUNTIME["K"], DENSE_RUNTIME["heap_elems"]),
+    ("vit", VIT_RUNTIME["R"], 1, VIT["burst_slices"], VIT["slice_elems"],
+     VIT_RUNTIME["C"], VIT_RUNTIME["K"], VIT_RUNTIME["heap_elems"]))
+FULL_HEAP_CHECKS = 3           # descriptor sets held on the ViT cell's heap
 BURST_CHECKS = 3               # hazard descriptor sets per shape and dtype
 BURST_SETS = 128               # descriptor sets rotated per timing
 RING_PRIMS = (2, 5, 6, 8)      # SEND, RECV_COPY_SEND, RECV_REDUCE_SEND,
@@ -447,6 +499,9 @@ def phase_fused_burst(device) -> dict:
             payload, heap_in, heap_out, B, *next(rot)))
         times[name] = dict(shape=[R, L, B, SL], ms=k_ms, plain_ms=p_ms,
                            bound_ms=bound)
+        if name == "vit":
+            times[name]["max_abs_err"] = full_heap_check(
+                rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H, device)
         print(f"[kernels] fused_burst {name} R={R} L={L} B={B} SL={SL} "
               f"float32, per call in a graph over {BURST_SETS} rotating "
               f"descriptor sets on a {H}-element heap row: kernel "
@@ -459,9 +514,38 @@ def phase_fused_burst(device) -> dict:
             "source": "src/repro_torch/csrc/fused_primitive.cu",
             "replaces": "src/repro/kernels/fused_slice.py:58",
             "shape": flat["shape"], "dtype": "float32",
-            "max_abs_err": max(errs), "ms": flat["ms"],
+            "max_abs_err": max(errs + [times["vit"]["max_abs_err"]]),
+            "ms": flat["ms"],
             "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "by_shape": times}
+
+
+def full_heap_check(rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H,
+                    device) -> float:
+    """fused_burst against fused_burst_plain on the ViT cell's whole heap
+    (R x H elements: flat offsets past 2^31, so every row base must be
+    64-bit), windows spread over the row; compared rank by rank."""
+    import torch
+    from repro_torch.kernels import fused_slice as fs
+
+    err = 0.0
+    for _ in range(FULL_HEAP_CHECKS):
+        args = burst_args(*burst_descriptors(rng, R, L, B, SL, C, K, H,
+                                             False), device)
+        h_k = heap_out.clone()
+        got = fs.fused_burst(payload, heap_in, h_k, B, *args)
+        torch.cuda.synchronize()
+        h_p = heap_out.clone()
+        want = fs.fused_burst_plain(payload, heap_in, h_p, B, *args)
+        err = max(err, compare_bits(got, want))
+        for r in range(R):
+            assert bits_equal(h_k[r], h_p[r]), ("heap_out", r)
+        del h_k, h_p
+        free_card()
+    print(f"[kernels] fused_burst vit: outbox and heap_out bitwise equal to "
+          f"plain on the whole {R} x {H} heap ({R * H} elements) in "
+          f"{FULL_HEAP_CHECKS} cases")
+    return err
 
 
 def combine_inputs(t: int, offset: int, dtype, device, seed: int):
@@ -922,6 +1006,236 @@ def phase_record(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the training path: the record's dense grad-sync cell and ViT-Base
+# ---------------------------------------------------------------------------
+
+def step_counts(s0: dict, s1: dict) -> dict:
+    """A step's supersteps split into exposed (barrier) and hidden
+    (overlap) ones, and its tick calls (lockstep sim: max over ranks)."""
+    d = lambda k: int(np.max(s1[k] - s0[k]))
+    return {"supersteps": d("supersteps"),
+            "exposed_supersteps": d("barrier_supersteps"),
+            "hidden_supersteps": d("overlap_supersteps"),
+            "tick_calls": d("tick_calls")}
+
+
+def dense_record(device) -> dict:
+    """``BENCH_collectives.json`` training.dense on the port: the
+    overlapped grads step at 8 ticks per boundary, then the same step at 0
+    (barrier), on one sync; returns each step's counts and mean loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.train.occl_sync import OcclGradSync
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_overlap_grads_step
+
+    c = DENSE_RECORD
+    cfg = get_config("qwen3-0.6b").reduced()
+    cell = ShapeCell("dense", c["seq"], c["batch"], "train")
+    dp = c["dp"]
+    params = [init_state(cfg, device=device).params for _ in range(dp)]
+    batches = [SyntheticPipeline(cfg, cell, shard_id=r,
+                                 n_shards=dp).batch_at(0) for r in range(dp)]
+    sync = OcclGradSync(init_state(cfg, device="meta").params, dp,
+                        device=device, **c["sync"])
+    rc = sync.occl.cfg
+    assert (rc.n_ranks, rc.max_colls, rc.conn_depth, rc.heap_elems) \
+        == tuple(DENSE_RUNTIME.values()), rc
+    out = {"buckets": len(sync.buckets)}
+    for mode, k in (("overlap", c["ticks_per_boundary"]), ("barrier", 0)):
+        step = make_overlap_grads_step(cfg, sync, ticks_per_boundary=k)
+        s0 = sync.stats()
+        st, losses, _ = step(sync.occl.state, params, batches)
+        sync.occl.adopt_state(st)
+        out[mode] = dict(step_counts(s0, sync.stats()),
+                         loss_mean=float(losses.mean()))
+    return out
+
+
+def phase_train_record(device) -> dict:
+    res = dense_record(device)
+    for mode in ("overlap", "barrier"):
+        r = res[mode]
+        print(f"[train record] dense grad sync, {mode}: {r['supersteps']} "
+              f"supersteps, {r['exposed_supersteps']} exposed, "
+              f"{r['hidden_supersteps']} hidden, {r['tick_calls']} tick "
+              f"calls, loss {r['loss_mean']:.6f}")
+        got = {k: r[k] for k in DENSE_STEPS[mode]}
+        assert got == DENSE_STEPS[mode], (mode, got)
+    return res
+
+
+def check_average(per_rank: list, averaged: list) -> float:
+    """Every rank's OCCL-averaged grads within rtol 1e-4 / atol 1e-6 of the
+    float64 average of the per-rank grads; returns the max abs error."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    ranks = [tree_leaves(g) for g in per_rank]
+    avgs = [tree_leaves(g) for g in averaged]
+    err = 0.0
+    for i in range(len(ranks[0])):
+        want = torch.stack([g[i] for g in ranks]).double().mean(0)
+        for a in avgs:
+            diff = (a[i].double() - want).abs()
+            assert bool(torch.isfinite(a[i]).all()), i
+            assert bool((diff <= 1e-6 + 1e-4 * want.abs()).all()), (
+                i, float(diff.max()))
+            err = max(err, float(diff.max()))
+    return err
+
+
+def check_buckets_once(sync, c0: np.ndarray, c1: np.ndarray) -> None:
+    """Every bucket completed exactly once on every rank in one step."""
+    for b in sync.buckets:
+        assert (c1[:, b.coll_id] - c0[:, b.coll_id] == 1).all(), (
+            b.coll_id, c1[:, b.coll_id] - c0[:, b.coll_id])
+
+
+def phase_vit(device, card: str) -> dict:
+    """ViT-Base at full width and depth over 4 simulated DP ranks through
+    OCCL: ``VIT_HOST_STEPS`` host-driven steps of ``run_occl_dp``, then one
+    ``make_overlap_grads_step`` step at ``VIT_OVERLAP_TICKS`` ticks per
+    boundary and one at 0 (barrier), each held against the float64 average
+    of the per-rank grads, every bucket completed once per rank."""
+    import argparse
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import fused_slice as fs
+    from repro_torch.launch.train import run_occl_dp
+    from repro_torch.train.step import (make_grads_step,
+                                        make_overlap_grads_step)
+
+    cfg = get_config(VIT["arch"])
+    cell = ShapeCell("vit", 0, VIT["batch"], "train")
+    args = argparse.Namespace(
+        dp=VIT["dp"], steps=VIT_HOST_STEPS,
+        bucket_elems=VIT["bucket_elems"], slice_elems=VIT["slice_elems"],
+        burst_slices=VIT["burst_slices"])
+    prev = {"completed": None, "launches": fs.fused_burst.launches}
+    host = []
+
+    def on_step(step, per_rank, synced, sync):
+        c1 = sync.stats()["completed"]
+        c0 = prev["completed"] if prev["completed"] is not None \
+            else np.zeros_like(c1)
+        check_buckets_once(sync, c0, c1)
+        err = check_average(per_rank, synced)
+        prev["completed"] = c1
+        launches = fs.fused_burst.launches - prev["launches"]
+        prev["launches"] = fs.fused_burst.launches
+        host.append({"max_abs_err": err, "fused_burst_launches": launches})
+
+    torch.cuda.reset_peak_memory_stats()
+    out = run_occl_dp(cfg, cell, args, device, on_step=on_step)
+    states, sync, pipes = out["states"], out["sync"], out["pipes"]
+    rt_cfg = sync.occl.cfg
+    assert (rt_cfg.n_ranks, rt_cfg.max_colls, rt_cfg.conn_depth,
+            rt_cfg.heap_elems) == tuple(VIT_RUNTIME.values()), rt_cfg
+    for rec, extra in zip(out["log"], host):
+        rec.update(extra, samples_per_s=VIT["batch"] / rec["wall_s"])
+        print(f"[vit] host-driven step {rec['step']}: {rec['wall_s']:.3f} s "
+              f"wall, {rec['supersteps']} supersteps, "
+              f"{rec['fused_burst_launches']} fused_burst launches, "
+              f"{rec['samples_per_s']:.3f} samples/s, loss "
+              f"{rec['loss']:.5f}, grads within {rec['max_abs_err']:.3g} of "
+              f"the float64 average [{card}]")
+    params = [s.params for s in states]
+    batches = [next(p) for p in pipes]
+    for p in pipes:
+        p.stop()
+    grads_fn = make_grads_step(cfg)
+    compute = []
+    for _ in range(2):              # the per-rank backward alone, no sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_rank = [grads_fn(s, b) for s, b in zip(states, batches)]
+        torch.cuda.synchronize()
+        compute.append(time.perf_counter() - t0)
+    compute_s = min(compute)
+    grads = [g for _, g in per_rank]
+    steps = {}
+    for mode, k in (("overlap", VIT_OVERLAP_TICKS), ("barrier", 0)):
+        step = make_overlap_grads_step(cfg, sync, ticks_per_boundary=k,
+                                       drain_iters=VIT_DRAIN_ITERS)
+        s0 = sync.stats()
+        n0 = fs.fused_burst.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, losses, got = step(sync.occl.state, params, batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sync.occl.adopt_state(st)
+        s1 = sync.stats()
+        check_buckets_once(sync, s0["completed"], s1["completed"])
+        rec = dict(step_counts(s0, s1), wall_s=wall,
+                   samples_per_s=VIT["batch"] / wall,
+                   fused_burst_launches=fs.fused_burst.launches - n0,
+                   loss=float(losses.mean()),
+                   max_abs_err=check_average(grads, got))
+        assert bool(torch.isfinite(losses).all()), losses
+        assert rec["hidden_supersteps"] + rec["exposed_supersteps"] \
+            == rec["supersteps"], rec
+        assert (rec["hidden_supersteps"] > 0) == (k > 0), rec
+        steps[mode] = rec
+        del got, st
+    # The record's model of a step (benchmarks/bench_training.py): hidden
+    # supersteps are free, exposed ones cost the barrier run's per-superstep
+    # time beyond the compute.
+    superstep_s = max((steps["barrier"]["wall_s"] - compute_s)
+                      / max(steps["barrier"]["exposed_supersteps"], 1), 1e-9)
+    for mode, rec in steps.items():
+        rec["step_s_modeled"] = (compute_s + rec["exposed_supersteps"]
+                                 * superstep_s)
+        ticks = VIT_OVERLAP_TICKS if mode == "overlap" else 0
+        print(f"[vit] {mode} step ({ticks} ticks per boundary): "
+              f"{rec['wall_s']:.3f} s wall, "
+              f"{rec['supersteps']} supersteps ({rec['exposed_supersteps']} "
+              f"exposed, {rec['hidden_supersteps']} hidden, "
+              f"{rec['tick_calls']} tick calls), "
+              f"{rec['fused_burst_launches']} fused_burst launches, "
+              f"{rec['samples_per_s']:.3f} samples/s, modeled step "
+              f"{rec['step_s_modeled']:.4f} s, loss {rec['loss']:.5f}, grads "
+              f"within {rec['max_abs_err']:.3g} of the float64 average "
+              f"[{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    res = {"host_steps": out["log"], "overlap": steps["overlap"],
+           "barrier": steps["barrier"], "compute_s": compute_s,
+           "superstep_s_modeled": superstep_s, "peak_bytes": peak,
+           "buckets": [b.total for b in sync.buckets], "cfg": rt_cfg}
+    print(f"[vit] compute alone (4 per-rank backward passes) "
+          f"{compute_s:.4f} s; modeled superstep {superstep_s * 1e3:.4f} ms; "
+          f"{len(sync.buckets)} buckets {res['buckets']}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    return res
+
+
+def phase_vit_profile(rt_cfg, n: int, card: str) -> dict:
+    """Device time per superstep at the ViT cell's runtime shape (R=4,
+    L=1, B=8, SL=1024, C=9, K=24): one profiled launch of
+    ``PROFILE_STEPS`` supersteps of one bucket of ``n`` elements (the
+    cell's largest)."""
+    import dataclasses
+
+    from repro_torch import core
+
+    cfg = dataclasses.replace(rt_cfg, heap_elems=4 * (2 * n + 64),
+                              superstep_budget=PROFILE_STEPS,
+                              quit_threshold=PROFILE_STEPS)
+    rt = core.OcclRuntime(cfg, device="cuda")
+    cid = rt.register(core.CollKind.ALL_REDUCE,
+                      rt.communicator(list(range(cfg.n_ranks))), n_elems=n)
+    rt.submit_all(cid, data=np.ones(n, np.float32))
+    res = profile_launch(rt, "vit R=4", card)
+    del rt
+    free_card()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the algos sweep and the cost-model fit
 # ---------------------------------------------------------------------------
 
@@ -981,7 +1295,7 @@ def phase_algos(device, card: str, save_path) -> "object":
 
 
 # ---------------------------------------------------------------------------
-# phase 7: where the time goes (short profiled launches at real size)
+# phase 8: where the time goes (short profiled launches at real size)
 # ---------------------------------------------------------------------------
 
 BURST_KERNEL = re.compile(r"\bfused_burst_kernel<")
@@ -1154,7 +1468,15 @@ def main(argv=None) -> int:
                                                           model))
     assert paths["composite"][0] >= sum(
         r["supersteps"] for v in comp.values() for r in v["runs"])
+    free_card()
+    main_path("train record", lambda: phase_train_record(device))
+    vit = main_path("vit", lambda: phase_vit(device, card))
+    assert paths["vit"][0] >= sum(r["supersteps"] for r in vit["host_steps"])
+    free_card()
     phase_profile(device, card)
+    vit["profile"] = phase_vit_profile(vit.pop("cfg"), max(vit["buckets"]),
+                                       card)
+    print("[vit] summary " + json.dumps(vit))
 
     entries = (burst_entry, fused_entry, combine_entry)
     for i, entry in enumerate(entries):

@@ -328,6 +328,14 @@ class _ChunkRunner:
         return (DaemonState(*[self._own(t) for t in st_out]),
                 Mailbox(*[t.clone() for t in in_out]), steps.clone())
 
+    def prime(self, st: DaemonState, inbox: Mailbox) -> None:
+        """Warm up and capture without advancing anything: the eager bodies
+        run on ``st`` marked not live, so their gated writes change no
+        heap element, and their outputs only shape the static buffers."""
+        if self.graph is None and st.heap_in.device.type == "cuda":
+            dead = st._replace(global_live=torch.zeros_like(st.global_live))
+            self._capture(*self._eager(dead, inbox, self.chunk)[:2])
+
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         return t if any(t is h for h in self.heaps) else t.clone()
 
@@ -364,20 +372,48 @@ def _store_mailbox(st: DaemonState, inbox: Mailbox) -> DaemonState:
         mb_rev_count=inbox.rev_count, mb_rev_coll=inbox.rev_coll)
 
 
-def _sim_tick_fn(cfg: OcclConfig, edge_plan: list, barrier: bool
-                 ) -> Callable:
-    """tick(sh, lt, fwd_src, rev_src, st, k) -> (st, TickFlags), sim."""
-    body = _sim_body_fn(cfg, edge_plan)
+class SimTicker:
+    """The sim daemon's superstep machine: one gated body over the tables,
+    shared by a daemon launch, the host-driven tick path
+    (``launch_once(tick_k=...)``) and in-step ticks
+    (:class:`~repro_torch.core.device_api.DeviceApi`), with one
+    :class:`_ChunkRunner` (one CUDA graph on the card) per tick size."""
 
-    def tick(sh, lt, fwd_src, rev_src, st, k):
-        st, inbox, steps = _run_bodies(body, sh, lt, fwd_src, rev_src, st,
-                                       _load_mailbox(st), int(k))
+    def __init__(self, cfg: OcclConfig, t: StaticTables, device):
+        from .state import tables_from_numpy
+
+        self.tables = tables_from_numpy(t, device)
+        self.body = _sim_body_fn(cfg, _edge_plan(_relink_edges(t), device))
+        self._runners: dict = {}
+
+    def _runner(self, k: int) -> _ChunkRunner:
+        run = self._runners.get(k)
+        if run is None:
+            run = self._runners[k] = _ChunkRunner(self.body, self.tables, k)
+        return run
+
+    def run(self, st: DaemonState, inbox: Mailbox, k: int):
+        """k gated bodies; returns (state, inbox, supersteps run)."""
+        if k <= 0:
+            return _run_bodies(self.body, *self.tables, st, inbox, 0)
+        return self._runner(k)(st, inbox, k)
+
+    def capture(self, st: DaemonState, k: int) -> None:
+        """Capture the k-body graph now, from ``st`` with the fabric marked
+        not live: the warm-up bodies then change nothing (every write is
+        gated), so a caller can capture before a backward pass and only
+        replay inside it.  A no-op on the CPU and once captured."""
+        if k > 0:
+            self._runner(k).prime(st, _load_mailbox(st))
+
+    def tick(self, st: DaemonState, k: int, barrier: bool):
+        """``tick(state, k) -> (state, TickFlags)``: up to ``k`` supersteps,
+        stamped into the barrier or the overlap split."""
+        st, inbox, steps = self.run(st, _load_mailbox(st), int(k))
         st = _tick_accounting(_store_mailbox(st, inbox), steps, barrier)
         flags = TickFlags(steps=steps, live=st.global_live[0],
                           drained=_drained(st).all())
         return st, flags
-
-    return tick
 
 
 def build_sim_tick(cfg: OcclConfig, t: StaticTables, device,
@@ -385,26 +421,20 @@ def build_sim_tick(cfg: OcclConfig, t: StaticTables, device,
     """``tick(state, k) -> (state, TickFlags)``, sim backend: up to ``k``
     supersteps of the daemon loop body (state leaves carry the leading [R]
     rank axis).  ``barrier`` is the accounting tag only."""
-    from .state import tables_from_numpy
-
-    sh, lt, fwd_src, rev_src = tables_from_numpy(t, device)
-    fn = _sim_tick_fn(cfg, _edge_plan(_relink_edges(t), device), barrier)
-    return lambda st, k: fn(sh, lt, fwd_src, rev_src, st, k)
+    ticker = SimTicker(cfg, t, device)
+    return lambda st, k: ticker.tick(st, k, barrier)
 
 
-def build_sim_daemon(cfg: OcclConfig, t: StaticTables, device) -> Callable:
-    """Daemon for the sim backend: state [R, ...] -> state.
+def build_sim_daemon(cfg: OcclConfig, ticker: SimTicker) -> Callable:
+    """Daemon for the sim backend on ``ticker``'s machine: state [R, ...]
+    -> state.
 
     One launch is the prologue plus ONE barrier tick of up to
     ``superstep_budget + 1`` supersteps (the budget check flips
     ``global_live`` first), run as gated chunks of ``TICK_CHUNK`` bodies — a
     CUDA graph replay each on the card — with one host read of the live
     flag per chunk."""
-    from .state import tables_from_numpy
-
     chunk = TICK_CHUNK
-    body = _sim_body_fn(cfg, _edge_plan(_relink_edges(t), device))
-    run = _ChunkRunner(body, tables_from_numpy(t, device), chunk)
     limit = cfg.superstep_budget + 1
 
     def daemon(st: DaemonState) -> DaemonState:
@@ -414,7 +444,7 @@ def build_sim_daemon(cfg: OcclConfig, t: StaticTables, device) -> Callable:
         done = 0
         while done < limit:
             k = min(chunk, limit - done)
-            st, inbox, steps = run(st, inbox, k)
+            st, inbox, steps = ticker.run(st, inbox, k)
             total = total + steps
             done += k
             if not bool(st.global_live[0]):

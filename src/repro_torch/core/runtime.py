@@ -19,11 +19,11 @@ Registration accepts every algorithm the reference does: the flat
 cost model of :mod:`repro_torch.core.costmodel`).  A hang raises
 :class:`DeadlockTimeout` with the flight-recorder export and a diagnosis
 naming the holder, and :meth:`OcclRuntime.evict` shrinks the fabric by
-one rank (drain, rebuild for R-1, replay).
-
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, "Modules
-to port"): ``tick_fn`` / ``device_api`` (item 7) and the mesh backend
-(item 11).
+one rank (drain, rebuild for R-1, replay).  The tick surface is ported:
+``tick_fn``, ``launch_once(tick_k=...)`` / ``drive(tick_k=...)`` and the
+in-step :meth:`OcclRuntime.device_api`, all on one superstep machine
+(:class:`~repro_torch.core.daemon.SimTicker`).  The mesh backend (ROADMAP.md,
+"Modules to port", item 11) is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ import torch
 
 from .algos import build_plan, default_hierarchy, select_algo
 from .config import OcclConfig, ReduceOp
-from .daemon import build_sim_daemon
+from .daemon import SimTicker, build_sim_daemon, launch_prologue
 from .errors import (ConnDepthWarning, DeadlockTimeout, EvictionError,
                      RegistrationClosed)
 from .handles import CollectiveHandle
@@ -102,6 +102,8 @@ class OcclRuntime:
         self._tables: Optional[StaticTables] = None
         self._staging: Optional[StagingEngine] = None
         self._daemon = None
+        self._ticker: Optional[SimTicker] = None
+        self._device_api = None
         self._state: Optional[DaemonState] = None
         self.queues = HostQueues(cfg)
         self.launches = 0
@@ -416,8 +418,8 @@ class OcclRuntime:
                     "conn_depth >= 3 * burst_slices or auto_conn_depth=True.",
                     ConnDepthWarning, stacklevel=3)
             self._tables = build_tables(self.cfg, self.comms, self.specs)
-            self._daemon = build_sim_daemon(self.cfg, self._tables,
-                                            self.device)
+            self._ticker = SimTicker(self.cfg, self._tables, self.device)
+            self._daemon = build_sim_daemon(self.cfg, self._ticker)
             self._staging = StagingEngine(self.cfg, self._tables)
             self._state = init_state(self.cfg, self.device)
 
@@ -426,15 +428,35 @@ class OcclRuntime:
         self._ensure_built()
         return self._state
 
+    # ------------------------------------------------------------------
+    # tick surface (compute-communication overlap; daemon.py docstring)
+    # ------------------------------------------------------------------
     def tick_fn(self, barrier: bool = True) -> Callable:
-        raise NotImplementedError(
-            "tick_fn is not ported yet (ROADMAP.md, 'Modules to port', "
-            "item 7: in-step tick + device API)")
+        """``tick(state, k) -> (state, TickFlags)`` over the full [R, ...]
+        state, on the runtime's superstep machine (its CUDA graphs
+        included).  ``barrier`` is the accounting tag (daemon.TickFlags).
+        Host-driven tick launches (``launch_once(tick_k=...)``) use the
+        barrier variant; in-step overlap goes through :meth:`device_api`."""
+        self._ensure_built()
+        ticker = self._ticker
+        return lambda st, k: ticker.tick(st, k, bool(barrier))
 
     def device_api(self):
-        raise NotImplementedError(
-            "device_api is not ported yet (ROADMAP.md, 'Modules to port', "
-            "item 7: in-step tick + device API)")
+        """The in-step submission/tick/read API bound to this runtime's
+        registrations (sim backend; core/device_api.py)."""
+        if self._device_api is None:
+            from .device_api import DeviceApi
+            self._device_api = DeviceApi(self)
+        return self._device_api
+
+    def adopt_state(self, st: DaemonState) -> None:
+        """Install a state produced by in-step ticks (device_api) as the
+        runtime's current state, syncing the host completion snapshot so
+        a later ``reconcile`` does not re-fire device-side completions."""
+        self._ensure_built()
+        self._state = st
+        self.queues._completed_seen = st.completed.cpu().numpy().astype(
+            np.int64)
 
     # ------------------------------------------------------------------
     # data movement (send/recv buffers live in the per-rank heap)
@@ -693,13 +715,27 @@ class OcclRuntime:
             self._state = self._staging.write(self._state, staged,
                                               owned=True)
 
-    def launch_once(self) -> int:
-        """One daemon launch; returns #CQEs drained (may be 0)."""
+    def launch_once(self, tick_k: Optional[int] = None) -> int:
+        """One daemon launch; returns #CQEs drained (may be 0).
+
+        ``tick_k`` switches to the host-driven TICK path: the launch is the
+        prologue plus repeated ``tick(tick_k)`` calls until the fabric goes
+        not-live, one host read of the live flag per call.  Batching
+        invariance (daemon.py docstring) makes the trajectory bit-identical
+        to the one-shot launch for any ``tick_k >= 1``."""
         self._ensure_built()
         self._flush_staged()
         prev_slices = int(self._state.slices_moved.sum())
         st = self.queues.pack_sq(self._state)
-        st = self._daemon(st)
+        if tick_k is None:
+            st = self._daemon(st)
+        else:
+            tick = self.tick_fn(barrier=True)
+            st = launch_prologue(st)
+            while True:
+                st, flags = tick(st, int(tick_k))
+                if not bool(flags.live):
+                    break
         self.launches += 1
         self._state = st
         fired = self.queues.reconcile(st)
@@ -711,13 +747,16 @@ class OcclRuntime:
         })
         return fired
 
-    def drive(self, max_launches: int = 64) -> None:
+    def drive(self, max_launches: int = 64,
+              tick_k: Optional[int] = None) -> None:
         """Event-driven daemon restarting: run while #CQE < #SQE (Sec.
         3.1.3).  ``max_launches`` bounds CONSECUTIVE launches without
-        progress (no completions and no slices moved)."""
+        progress (no completions and no slices moved).  ``tick_k`` routes
+        every launch through the host-driven tick path (see
+        :meth:`launch_once`)."""
         idle = 0
         while self.queues.outstanding() != 0:
-            self.launch_once()
+            self.launch_once(tick_k=tick_k)
             rec = self.launch_history[-1]
             if rec["completions"] == 0 and rec["slices_moved"] == 0:
                 idle += 1
@@ -872,7 +911,9 @@ class OcclRuntime:
         self._out_ptr = 0
         self._tables = None
         self._staging = None
-        self._daemon = None             # drops its captured CUDA graph
+        self._daemon = None             # drops its captured CUDA graphs
+        self._ticker = None
+        self._device_api = None
         self._state = None
         self.queues = HostQueues(self.cfg)
         self._outstanding = collections.defaultdict(collections.deque)

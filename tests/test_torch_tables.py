@@ -175,8 +175,9 @@ def test_runtime_raises_without_a_card_unless_cpu_requested(monkeypatch):
 def test_composite_and_unported_paths_raise_not_implemented():
     """Composite registration is ported: two_level lowers to a chain, auto
     resolves, a plan the zoo lacks raises the reference's ValueError.  The
-    paths still to port raise NotImplementedError naming their ROADMAP.md
-    item."""
+    tick surface is ported (``tick_fn`` and ``device_api`` return their
+    objects); the paths still to port raise NotImplementedError naming
+    their ROADMAP.md item."""
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
     from repro_torch.fabric.ft import TrainController
 
@@ -191,6 +192,6 @@ def test_composite_and_unported_paths_raise_not_implemented():
     chains = rt.stats()["chains"]
     assert chains[head] == [head, head + 1, head + 2]
     assert auto not in chains                       # flat ring
-    for call in (rt.tick_fn, rt.device_api, TrainController):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert callable(rt.tick_fn()) and not rt.device_api().stale
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrainController()
