@@ -13,14 +13,16 @@ Phases (each raises on failure; the script then exits non-zero):
    card, outbox and heap_out, at the main paths' shapes (adversarial
    8x1x1 at slice 64, flat 8x1x8, composite 16x{1,2}x8 and the ViT
    training cell's 4x1x8 at 1024, the record's dense grad-sync cell's
-   4x1x8 at 512) in
+   4x1x8 at 512, the serving cell's 4x1x1 at 64, the MoE cells' 4x1x1 at
+   128 and at 8192) in
    float32 and bfloat16, over seeded descriptor sets with wrapped slots,
    partial bursts, ranks not live, invalid lanes, overlapping windows of two
    lanes, windows clamped at both ends, odd window offsets, a padded
    connector rank stride, NaN and +/-inf; times kernel and plain version
    from a CUDA graph, rotating descriptor sets over windows spread across a
-   real-size heap, beside its bound, and at the ViT cell's shape once more
-   on its whole 4 x 692308224 heap (flat offsets past 2^31); then the same
+   real-size heap, beside its bound, and at the full-width MoE and the ViT
+   cells' shapes once more on their whole 4 x 629153792 and 4 x 692316416
+   heaps (flat offsets past 2^31); then the same
    for the ``[N, S]``
    ``fused_primitive`` entry (no main-path caller), timed also eagerly;
 3. holds ``chunk_combine`` bit for bit against its plain version at T in
@@ -56,13 +58,31 @@ Phases (each raises on failure; the script then exits non-zero):
    torus / hybrid and broadcast ring / tree) timed on the card, fitted with
    the port's cost model; prints alpha, beta, gamma and whether ``auto``
    picks the measured winner (``--save-calibration`` writes the fit);
-7. the training path (main paths, counted like phase 4):
+7. the training and serving paths (main paths, counted like phase 4):
    a. the record's dense grad-sync cell (``BENCH_collectives.json``
       training.dense: qwen3-0.6b reduced, dp 4, 7 buckets, burst 8, skewed
       lanes): the overlapped grads step at 8 ticks per boundary (244
       supersteps, 20 exposed, 224 hidden, 30 tick calls), then at 0
       (barrier: 196, all exposed, 41 tick calls);
-   b. ViT-Base at full width and depth (86.5 M parameters) over 4
+   b. the record's MoE cell (training.moe: deepseek-moe-16b reduced, R=4,
+      8 tokens per rank, cap 16, 4 streams, 8 overlap ticks): the barrier
+      forward (360 supersteps, all exposed, 2 tick calls), bit-equal to the
+      port's ``ep_forward_ref``, then the overlapped one (320: 256 exposed,
+      64 hidden, 31 tick calls);
+   c. the record's serving cell (``serving``, ``benchmarks/bench_serving.py``
+      ``REPLAY``): decode p99 52 supersteps, 44 preempts, 780 supersteps
+      with preemption; 386.65, 0, 2292 without; the background drains;
+   d. grad-sync ``evict(3)`` on 4 ranks: the survivors keep averaging, a
+      ``DeviceApi`` kept across it is stale, a fresh one runs a step;
+   e. the full-width MoE cell: DeepSeek-MoE-16B's MoE block (d_model 2048,
+      64 experts top-6, 2 shared, d_ff_expert 1408, f32, capacity factor
+      1.25) over R=4 expert-parallel ranks, 4096 tokens per rank (cap 480),
+      slices of 8192: one barrier forward (bit-equal to ``ep_forward_ref``)
+      and one overlapped forward, each within rtol 1e-4 / atol 1e-5 of a
+      float64 recomputation from its routing, every exchange completed
+      once per rank; supersteps, tick calls, preempts, wall, launches and
+      peak memory;
+   f. ViT-Base at full width and depth (86.5 M parameters) over 4
       simulated DP ranks, global batch 128, DDP-sized buckets (6553600
       elements), slice 1024, burst 8: two host-driven steps of
       ``launch/train.py::run_occl_dp``, then one overlapped grads step at 8
@@ -165,6 +185,50 @@ DENSE_STEPS = {
                 "hidden_supersteps": 224, "tick_calls": 30},
     "barrier": {"supersteps": 196, "exposed_supersteps": 196,
                 "hidden_supersteps": 0, "tick_calls": 41}}
+
+# BENCH_collectives.json "training" -> "moe": deepseek-moe-16b reduced at
+# capacity factor 8, R=4 expert-parallel ranks, 8 tokens per rank, cap 16
+# (T_l * top_k: no drops), 4 streams, 8 overlap ticks; the barrier forward,
+# then the overlapped one.  Its runtime (OcclMoE's formula): C=10, K=8,
+# slice 128, heap 81920 per rank.
+MOE_RECORD = dict(R=4, tokens=8, cap=16, n_streams=4, overlap_ticks=8,
+                  capacity_factor=8.0)
+MOE_RUNTIME = dict(R=4, C=10, K=8, slice_elems=128, heap_elems=81_920)
+MOE_STEPS = {
+    "barrier": {"supersteps": 360, "exposed_supersteps": 360,
+                "hidden_supersteps": 0, "tick_calls": 2},
+    "overlap": {"supersteps": 320, "exposed_supersteps": 256,
+                "hidden_supersteps": 64, "tick_calls": 31}}
+# The full-width MoE cell: DeepSeek-MoE-16B's MoE block exactly as
+# src/repro_torch/configs/deepseek_moe_16b.py gives it (d_model 2048, 64
+# routed experts top-6, 2 shared, d_ff_expert 1408, f32 parameters, its own
+# capacity factor 1.25) over R=4 simulated expert-parallel ranks, one
+# 4096-token training sequence per rank (cap 480), 4 streams, 8 overlap
+# ticks, slices of 8192 f32 (32 KiB).  Tokens: a seeded normal draw plus
+# MOE_SHARED times one shared direction, so the router's load is uneven
+# and capacity drops real assignments.  Runtime: C=10, K=8, heap
+# 10 * 64 * 480 * 2048 = 629145600 elements per rank.
+MOE_FULL = dict(arch="deepseek-moe-16b", R=4, tokens=4096, n_streams=4,
+                overlap_ticks=8, slice_elems=8192, seed=16)
+MOE_FULL_RUNTIME = dict(R=4, C=10, K=8, slice_elems=8192,
+                        heap_elems=629_145_600)
+MOE_SHARED = 0.15
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5    # against the float64 recomputation
+# BENCH_collectives.json "serving", benchmarks/bench_serving.py's REPLAY:
+# 12 open-loop requests (Poisson gaps of 24 supersteps), a prefill
+# all-gather then 4 chained decode all-reduces each, against a background
+# tenant pumped to its admission cap of 2 grad-sync bursts; run with
+# preemption on and off.  Its runtime: R=4, C=8, K=4, slice 64, heap 2^17.
+SERVING_REPLAY = {
+    "seed": 0, "n_ranks": 4, "n_requests": 12, "decode_chain": 4,
+    "mean_gap": 24.0, "decode_elems": 256, "prefill_elems": 1024,
+    "background_elems": 4096, "background_buckets": 2,
+    "max_background_inflight": 2, "prio_aging_quantum": 8,
+    "prio_aging_cap": 255, "horizon": 1 << 15}
+SERVING_RUNTIME = dict(R=4, C=8, K=4, slice_elems=64, heap_elems=1 << 17)
+SERVING_COUNTS = {
+    True: {"p99": 52.0, "preempts": 44, "supersteps": 780},
+    False: {"p99": 386.65, "preempts": 0, "supersteps": 2292}}
 
 
 def card_line() -> str:
@@ -346,9 +410,19 @@ BURST_SHAPES = (
     ("dense record", DENSE_RUNTIME["R"], 1,
      DENSE_RECORD["sync"]["burst_slices"], DENSE_RECORD["sync"]["slice_elems"],
      DENSE_RUNTIME["C"], DENSE_RUNTIME["K"], DENSE_RUNTIME["heap_elems"]),
+    ("serving", SERVING_RUNTIME["R"], 1, 1, SERVING_RUNTIME["slice_elems"],
+     SERVING_RUNTIME["C"], SERVING_RUNTIME["K"],
+     SERVING_RUNTIME["heap_elems"]),
+    ("moe record", MOE_RUNTIME["R"], 1, 1, MOE_RUNTIME["slice_elems"],
+     MOE_RUNTIME["C"], MOE_RUNTIME["K"], MOE_RUNTIME["heap_elems"]),
+    ("moe fullwidth", MOE_FULL_RUNTIME["R"], 1, 1,
+     MOE_FULL_RUNTIME["slice_elems"], MOE_FULL_RUNTIME["C"],
+     MOE_FULL_RUNTIME["K"], MOE_FULL_RUNTIME["heap_elems"]),
     ("vit", VIT_RUNTIME["R"], 1, VIT["burst_slices"], VIT["slice_elems"],
      VIT_RUNTIME["C"], VIT_RUNTIME["K"], VIT_RUNTIME["heap_elems"]))
-FULL_HEAP_CHECKS = 3           # descriptor sets held on the ViT cell's heap
+# Shapes whose whole real-size heap (flat offsets past 2^31) is also held.
+FULL_HEAP_SHAPES = ("moe fullwidth", "vit")
+FULL_HEAP_CHECKS = 3           # descriptor sets held on each such heap
 BURST_CHECKS = 3               # hazard descriptor sets per shape and dtype
 BURST_SETS = 128               # descriptor sets rotated per timing
 RING_PRIMS = (2, 5, 6, 8)      # SEND, RECV_COPY_SEND, RECV_REDUCE_SEND,
@@ -499,7 +573,7 @@ def phase_fused_burst(device) -> dict:
             payload, heap_in, heap_out, B, *next(rot)))
         times[name] = dict(shape=[R, L, B, SL], ms=k_ms, plain_ms=p_ms,
                            bound_ms=bound)
-        if name == "vit":
+        if name in FULL_HEAP_SHAPES:
             times[name]["max_abs_err"] = full_heap_check(
                 rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H, device)
         print(f"[kernels] fused_burst {name} R={R} L={L} B={B} SL={SL} "
@@ -514,7 +588,8 @@ def phase_fused_burst(device) -> dict:
             "source": "src/repro_torch/csrc/fused_primitive.cu",
             "replaces": "src/repro/kernels/fused_slice.py:58",
             "shape": flat["shape"], "dtype": "float32",
-            "max_abs_err": max(errs + [times["vit"]["max_abs_err"]]),
+            "max_abs_err": max(errs + [times[n]["max_abs_err"]
+                                       for n in FULL_HEAP_SHAPES]),
             "ms": flat["ms"],
             "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "by_shape": times}
@@ -522,9 +597,9 @@ def phase_fused_burst(device) -> dict:
 
 def full_heap_check(rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H,
                     device) -> float:
-    """fused_burst against fused_burst_plain on the ViT cell's whole heap
-    (R x H elements: flat offsets past 2^31, so every row base must be
-    64-bit), windows spread over the row; compared rank by rank."""
+    """fused_burst against fused_burst_plain on a cell's whole heap (R x H
+    elements: flat offsets past 2^31, so every row base must be 64-bit),
+    windows spread over the row; compared rank by rank."""
     import torch
     from repro_torch.kernels import fused_slice as fs
 
@@ -542,9 +617,9 @@ def full_heap_check(rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H,
             assert bits_equal(h_k[r], h_p[r]), ("heap_out", r)
         del h_k, h_p
         free_card()
-    print(f"[kernels] fused_burst vit: outbox and heap_out bitwise equal to "
-          f"plain on the whole {R} x {H} heap ({R * H} elements) in "
-          f"{FULL_HEAP_CHECKS} cases")
+    print(f"[kernels] fused_burst R={R} SL={SL}: outbox and heap_out "
+          f"bitwise equal to plain on the whole {R} x {H} heap ({R * H} "
+          f"elements) in {FULL_HEAP_CHECKS} cases")
     return err
 
 
@@ -1066,6 +1141,443 @@ def phase_train_record(device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7b, 7e: expert-parallel MoE over OCCL (the record's cell, full width)
+# ---------------------------------------------------------------------------
+
+def moe_counts(moe, fn, params, xs) -> tuple:
+    """One forward's outputs and counts (step_counts plus preempts)."""
+    s0 = moe.stats()
+    ys = fn(params, xs)
+    s1 = moe.stats()
+    return ys, dict(step_counts(s0, s1), preempts=int(
+        (s1["preempts"] - s0["preempts"]).sum()))
+
+
+def moe_record(device) -> dict:
+    """``BENCH_collectives.json`` training.moe on the port: the barrier
+    forward, then the overlapped one, on one ``OcclMoE``; returns each
+    forward's counts, whether the barrier output is bit-equal to the port's
+    ``ep_forward_ref`` and the overlapped output's largest difference from
+    it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe_block
+    from repro_torch.train.occl_moe import OcclMoE, ep_forward_ref
+
+    c = MOE_RECORD
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                              capacity_factor=c["capacity_factor"])
+    params = init_moe_block(0, "t", cfg, torch.float32, device)
+    rng = np.random.RandomState(2)
+    xs = [torch.from_numpy((rng.randn(c["tokens"], cfg.d_model) * 0.5)
+                           .astype(np.float32)).to(device)
+          for _ in range(c["R"])]
+    moe = OcclMoE(cfg, c["R"], c["tokens"], cap=c["cap"],
+                  n_streams=c["n_streams"], overlap_ticks=c["overlap_ticks"],
+                  device=device)
+    rc = moe.occl.cfg
+    assert (rc.n_ranks, rc.max_colls, rc.conn_depth, rc.slice_elems,
+            rc.heap_elems) == tuple(MOE_RUNTIME.values()), rc
+    ref = ep_forward_ref(cfg, params, xs, cap=c["cap"])
+    out = {}
+    yb, out["barrier"] = moe_counts(moe, moe.forward, params, xs)
+    yo, out["overlap"] = moe_counts(moe, moe.forward_overlapped, params, xs)
+    out["barrier_bitwise"] = all(bits_equal(a, b) for a, b in zip(yb, ref))
+    out["overlap_max_abs_diff"] = max(float((a - b).abs().max())
+                                      for a, b in zip(yo, ref))
+    out["overlap_close"] = all(bool(torch.allclose(a, b, rtol=1e-5,
+                                                   atol=1e-9))
+                               for a, b in zip(yo, ref))
+    return out
+
+
+def phase_moe_record(device) -> dict:
+    res = moe_record(device)
+    for mode in ("barrier", "overlap"):
+        r = res[mode]
+        print(f"[moe record] {mode} forward: {r['supersteps']} supersteps, "
+              f"{r['exposed_supersteps']} exposed, {r['hidden_supersteps']} "
+              f"hidden, {r['tick_calls']} tick calls, {r['preempts']} "
+              f"preempts")
+        got = {k: r[k] for k in MOE_STEPS[mode]}
+        assert got == MOE_STEPS[mode], (mode, got)
+    print(f"[moe record] barrier output bitwise equal to ep_forward_ref: "
+          f"{res['barrier_bitwise']}; overlapped output within "
+          f"{res['overlap_max_abs_diff']:.3g} of it (rtol 1e-5, atol 1e-9)")
+    assert res["barrier_bitwise"] and res["overlap_close"], res
+    return res
+
+
+def moe_tokens(cfg, R: int, tokens: int, seed: int, device) -> list:
+    """R seeded [tokens, D] float32 token matrices: a normal draw plus
+    ``MOE_SHARED`` times one shared direction (uneven expert load)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((R, tokens, cfg.d_model), generator=g, device=device)
+    shared = torch.randn((cfg.d_model,), generator=g, device=device)
+    return list(x + MOE_SHARED * shared)
+
+
+def moe_float64_err(cfg, params, x, y, tok_idx, w, slots) -> float:
+    """Largest |y - y64| over one rank, where y64 is the expert FFN, the
+    weighted combine (same slots and weights) and the shared experts
+    recomputed in float64; raises beyond MOE_RTOL / MOE_ATOL."""
+    import torch
+    import torch.nn.functional as F
+
+    E, cap, D = w.shape[0], w.shape[1], cfg.d_model
+    valid = torch.zeros(E * cap + 1, dtype=torch.bool, device=x.device)
+    valid[slots.reshape(-1)] = True
+    valid = valid[:-1].view(E, cap)
+    x64 = x.double()
+    xe = torch.where(valid[..., None], x64[tok_idx], 0.0)
+    h = torch.einsum("ecd,edf->ecf", xe, params["wg"].double())
+    u = torch.einsum("ecd,edf->ecf", xe, params["wu"].double())
+    ye = torch.einsum("ecf,efd->ecd", F.silu(h) * u, params["wd"].double())
+    del xe, h, u
+    contrib = (ye * (w.double() * valid)[..., None]).reshape(-1, D)
+    y64 = torch.zeros((x.shape[0], D), dtype=torch.float64,
+                      device=x.device).index_add_(0, tok_idx.reshape(-1),
+                                                  contrib)
+    if "shared_wg" in params:
+        hs = F.silu(x64 @ params["shared_wg"].double()) * (
+            x64 @ params["shared_wu"].double())
+        y64 = y64 + hs @ params["shared_wd"].double()
+    diff = (y.double() - y64).abs()
+    assert bool(torch.isfinite(y).all())
+    assert bool((diff <= MOE_ATOL + MOE_RTOL * y64.abs()).all()), float(
+        diff.max())
+    return float(diff.max())
+
+
+def moe_fullwidth(device, cfg, tokens: int, slice_elems: int,
+                  seed: int) -> dict:
+    """One barrier ``forward`` and one ``forward_overlapped`` of
+    ``OcclMoE`` on ``cfg``'s MoE block over R=4 expert-parallel ranks:
+    each checked against the float64 recomputation from its own routing,
+    every exchange completed once per rank; the barrier output bit for bit
+    against the port's ``ep_forward_ref``.  Returns counts, wall, launches
+    and the errors."""
+    import torch
+    from repro_torch.kernels import fused_slice as fs
+    from repro_torch.models.moe import init_moe_block
+    from repro_torch.train.occl_moe import (OcclMoE, _dispatch_local_t,
+                                            ep_forward_ref)
+
+    c = MOE_FULL
+    R = c["R"]
+    params = init_moe_block(seed, "l0/moe", cfg, torch.float32, device)
+    xs = moe_tokens(cfg, R, tokens, seed, device)
+    moe = OcclMoE(cfg, R, tokens, slice_elems=slice_elems,
+                  n_streams=c["n_streams"], overlap_ticks=c["overlap_ticks"],
+                  device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    moe.occl.state          # the first touch builds tables and heaps
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    cap = moe.cap
+    routing = [_dispatch_local_t(cfg, params, x, cap)[1:] for x in xs]
+    kept = sum(int((s < cfg.n_experts * cap).sum()) for _, _, s in routing)
+    res = {"cap": cap, "n_elems": moe.n_elems, "build_s": build_s,
+           "dropped_share": 1.0 - kept / (R * tokens * cfg.top_k),
+           "runtime": moe.occl.cfg}
+    ref = ep_forward_ref(cfg, params, xs, cap=cap)
+    ids = {"barrier": [moe.disp_id, moe.comb_id],
+           "overlap": moe.disp_stream_ids + moe.comb_stream_ids}
+    for mode, fn in (("barrier", moe.forward),
+                     ("overlap", moe.forward_overlapped)):
+        c0 = moe.stats()["completed"]
+        n0 = fs.fused_burst.launches
+        spent = split_calls(moe.occl, BARRIER_SPLIT, device) \
+            if mode == "barrier" else None
+        _sync(device)
+        t0 = time.perf_counter()
+        ys, rec = moe_counts(moe, fn, params, xs)
+        _sync(device)
+        rec["wall_s"] = time.perf_counter() - t0
+        if spent is not None:
+            for name in BARRIER_SPLIT:
+                delattr(moe.occl, name)
+            rec["split_s"] = {
+                "daemon": spent["drive"] - spent["_flush_staged"],
+                "flush": spent["_flush_staged"],
+                "read": spent["read_outputs_bulk"],
+                "rest": rec["wall_s"] - spent["drive"]
+                - spent["read_outputs_bulk"]}
+        rec["fused_burst_launches"] = fs.fused_burst.launches - n0
+        c1 = moe.stats()["completed"]
+        assert (c1[:, ids[mode]] - c0[:, ids[mode]] == 1).all(), (
+            mode, c1 - c0)
+        rec["float64_max_abs_err"] = max(
+            moe_float64_err(cfg, params, x, y, *rt)
+            for x, y, rt in zip(xs, ys, routing))
+        if mode == "barrier":
+            rec["bitwise_vs_ep_ref"] = all(
+                bits_equal(a, b) for a, b in zip(ys, ref))
+            assert rec["bitwise_vs_ep_ref"], mode
+        res[mode] = rec
+        del ys
+    return res
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+# The barrier forward's calls into its runtime, timed one by one.
+BARRIER_SPLIT = ("_flush_staged", "drive", "read_outputs_bulk")
+
+
+def split_calls(obj, names, device) -> dict:
+    """Shadow ``obj``'s methods ``names`` with instance attributes that add
+    each call's host-clock seconds (ended by a device sync) to the returned
+    dict; ``delattr(obj, name)`` restores the method."""
+    spent = dict.fromkeys(names, 0.0)
+    for name in names:
+        def timed(*a, _fn=getattr(obj, name), _name=name, **kw):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            _sync(device)
+            spent[_name] += time.perf_counter() - t0
+            return out
+        setattr(obj, name, timed)
+    return spent
+
+
+def phase_moe_fullwidth(device, card: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+
+    c = MOE_FULL
+    cfg = get_config(c["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = moe_fullwidth(device, cfg, c["tokens"], c["slice_elems"],
+                        c["seed"])
+    res["phase_s"] = time.perf_counter() - t0
+    rc = res.pop("runtime")
+    assert (rc.n_ranks, rc.max_colls, rc.conn_depth, rc.slice_elems,
+            rc.heap_elems) == tuple(MOE_FULL_RUNTIME.values()), rc
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[moe fullwidth] {c['arch']} MoE block (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, "
+          f"{cfg.n_shared_experts} shared, d_ff_expert {cfg.d_ff_expert}), "
+          f"R={c['R']}, {c['tokens']} tokens per rank, cap {res['cap']}, "
+          f"{res['n_elems']} elements per exchange per rank, "
+          f"{res['dropped_share']:.4f} of the assignments dropped by "
+          f"capacity; runtime built (tables, heaps) in "
+          f"{res['build_s']:.3f} s [{card}]")
+    for mode in ("barrier", "overlap"):
+        r = res[mode]
+        print(f"[moe fullwidth] {mode} forward: {r['wall_s']:.3f} s wall, "
+              f"{r['supersteps']} supersteps ({r['exposed_supersteps']} "
+              f"exposed, {r['hidden_supersteps']} hidden), "
+              f"{r['tick_calls']} tick calls, {r['preempts']} preempts, "
+              f"{r['wall_s'] * 1e3 / r['supersteps']:.4f} ms per "
+              f"superstep, {r['fused_burst_launches']} fused_burst "
+              f"launches, within {r['float64_max_abs_err']:.3g} of the "
+              f"float64 recomputation [{card}]")
+    sp = res["barrier"]["split_s"]
+    print(f"[moe fullwidth] barrier forward on the host clock: daemon "
+          f"{sp['daemon']:.3f} s "
+          f"({sp['daemon'] * 1e3 / res['barrier']['supersteps']:.4f} ms per "
+          f"superstep), staging flushes {sp['flush']:.3f} s, output reads "
+          f"{sp['read']:.3f} s, the rest (dispatch, expert FFN, combine, "
+          f"host copies) {sp['rest']:.3f} s [{card}]")
+    print(f"[moe fullwidth] barrier output bitwise equal to ep_forward_ref:"
+          f" {res['barrier']['bitwise_vs_ep_ref']}; every exchange "
+          f"completed once per rank; peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; phase "
+          f"{res['phase_s']:.1f} s [{card}]")
+    print("[moe fullwidth] summary " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the serving QoS replay (BENCH_collectives.json "serving")
+# ---------------------------------------------------------------------------
+
+def serving_replay(preemption: bool, device, spec: dict = SERVING_REPLAY
+                   ) -> dict:
+    """``benchmarks/bench_serving.py``'s ``replay`` on the port: the same
+    traffic trace (from ``spec['seed']`` alone) through ``ServingQos``;
+    returns decode latencies (supersteps), the fabric's counts and the
+    background tenant's drain."""
+    from repro_torch.serving.qos import ServingQos, TrafficClass
+
+    qos = ServingQos(
+        n_ranks=spec["n_ranks"], decode_elems=spec["decode_elems"],
+        prefill_elems=spec["prefill_elems"],
+        background_elems=spec["background_elems"],
+        background_buckets=spec["background_buckets"],
+        max_background_inflight=spec["max_background_inflight"],
+        preemption=preemption,
+        prio_aging_quantum=spec["prio_aging_quantum"],
+        prio_aging_cap=spec["prio_aging_cap"], tick_chunk=1, device=device)
+    rng = np.random.RandomState(spec["seed"])
+    arrivals = np.cumsum(
+        rng.exponential(spec["mean_gap"], spec["n_requests"])).astype(int)
+    jobs = [{"arrival": int(a), "rec": None, "prefilled": False,
+             "left": spec["decode_chain"], "done_at": None}
+            for a in arrivals]
+    decode_lat = []
+    qos.pump_background()
+    t0 = time.perf_counter()
+    while any(j["done_at"] is None for j in jobs):
+        if qos.now > spec["horizon"]:
+            raise RuntimeError(
+                f"serving replay exceeded its {spec['horizon']}-superstep "
+                f"horizon (preemption={preemption})")
+        for j in jobs:
+            if j["done_at"] is not None or j["arrival"] > qos.now:
+                continue
+            if j["rec"] is None:
+                j["rec"] = qos.submit_prefill()
+            elif j["rec"]["done_at"] is not None:
+                if j["prefilled"]:
+                    decode_lat.append(
+                        j["rec"]["done_at"] - j["rec"]["arrival"])
+                    j["left"] -= 1
+                else:
+                    j["prefilled"] = True
+                if j["left"] == 0:
+                    j["done_at"] = qos.now
+                else:
+                    j["rec"] = qos.submit_decode()
+        qos.pump_background()
+        qos.advance()
+    busy_wall = time.perf_counter() - t0
+    busy = max(qos.now, 1)
+    bg = qos.tenants[TrafficClass.BACKGROUND]
+    drain = qos.drain()
+    s = qos.summary()
+    lat = np.asarray(decode_lat, float)
+    return {"decode_latencies": decode_lat,
+            "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)),
+            "prefill_p99": s["prefill"]["p99"],
+            "supersteps": s["supersteps"], "preempts": s["preempts"],
+            "background_completed": bg.completed,
+            "background_drained": bg.completed == bg.submitted,
+            "drain_supersteps": int(drain), "busy_supersteps": busy,
+            "busy_wall_s": busy_wall, "superstep_s": busy_wall / busy}
+
+
+def phase_serving(device, card: str) -> dict:
+    out = {}
+    for pre in (True, False):
+        r = serving_replay(pre, device)
+        out["preempt_on" if pre else "preempt_off"] = r
+        print(f"[serving] preemption {'on' if pre else 'off'}: decode p50 "
+              f"{r['p50']:g} / p99 {r['p99']:g} supersteps over "
+              f"{len(r['decode_latencies'])} decode steps, {r['preempts']} "
+              f"preempts, {r['supersteps']} supersteps, background drained "
+              f"{r['background_drained']} in {r['drain_supersteps']}; "
+              f"{r['busy_wall_s']:.3f} s for {r['busy_supersteps']} busy "
+              f"supersteps ({r['superstep_s'] * 1e3:.4f} ms each, host "
+              f"loop included) [{card}]")
+        got = {k: r[k] for k in SERVING_COUNTS[pre]}
+        assert got == SERVING_COUNTS[pre], (pre, got)
+        assert r["background_drained"], r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: grad-sync evict and DeviceApi staleness on the card
+# ---------------------------------------------------------------------------
+
+# A small gradient tree (two buckets of at most 4096 elements) on 4 DP
+# ranks.
+EVICT_SYNC = dict(dp=4, bucket_elems=4096,
+                  shapes={"attn_wo": (64, 32), "attn_wq": (32, 64),
+                          "mlp_b": (300,), "mlp_w": (48, 40)})
+
+
+def grad_sync_evict(device) -> dict:
+    """``OcclGradSync.evict(3)`` on a 4-rank sync: the 3 survivors'
+    buckets keep averaging (float64 average, rtol 1e-5, atol 1e-6); a
+    ``DeviceApi`` kept across the evict is stale and refuses a step, a
+    fresh one runs a step of every bucket."""
+    import torch
+    from repro_torch.core.errors import EvictionError
+    from repro_torch.train.occl_sync import OcclGradSync
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    c = EVICT_SYNC
+    template = {k: torch.empty(s, device="meta")
+                for k, s in c["shapes"].items()}
+    sync = OcclGradSync(template, c["dp"], bucket_elems=c["bucket_elems"],
+                        device=device)
+    rng = np.random.RandomState(7)
+    shapes = [tuple(l.shape) for l in tree_leaves(template)]
+
+    def grads(n):
+        return [[rng.randn(*s).astype(np.float32) for s in shapes]
+                for _ in range(n)]
+
+    def check(flat, got) -> float:
+        err = 0.0
+        for r, tree in enumerate(got):
+            for i, a in enumerate(tree_leaves(tree)):
+                want = np.mean([f[i].astype(np.float64) for f in flat], 0)
+                np.testing.assert_allclose(a.cpu().numpy(), want, rtol=1e-5,
+                                           atol=1e-6)
+                err = max(err, float(np.abs(a.cpu().numpy() - want).max()))
+        return err
+
+    flat = grads(c["dp"])
+    err = check(flat, sync.all_reduce([tree_unflatten(template, g)
+                                       for g in flat]))
+    api = sync.device_api()
+    report = sync.evict(3)
+    assert sync.n_ranks == c["dp"] - 1 and api.stale, report
+    try:
+        api.step_prologue(sync.occl.state)
+        refused = False
+    except EvictionError:
+        refused = True
+    assert refused
+    flat = grads(sync.n_ranks)
+    err = max(err, check(flat, sync.all_reduce(
+        [tree_unflatten(template, g) for g in flat])))
+    api2 = sync.device_api()
+    assert not api2.stale and api2 is not api
+    st = api2.step_prologue(sync.occl.state)
+    flat = grads(sync.n_ranks)
+    for bidx, b in enumerate(sync.buckets):
+        data = torch.stack([torch.from_numpy(np.concatenate(
+            [f[i].ravel() for i in b.leaf_ids])) for f in flat])
+        st = api2.submit_all(st, b.coll_id, data, prio=bidx)
+    st = api2.drain(st)
+    sync.occl.adopt_state(st)
+    got = [sync.unflatten([api2.read(st, r, b.coll_id).float() / sync.n_ranks
+                           for b in sync.buckets])
+           for r in range(sync.n_ranks)]
+    err = max(err, check(flat, got))
+    return {"n_ranks": sync.n_ranks, "buckets": len(sync.buckets),
+            "replayed": report["replayed"], "stale_refused": refused,
+            "max_abs_err": err}
+
+
+def phase_evict(device) -> dict:
+    res = grad_sync_evict(device)
+    print(f"[evict] grad sync evict(3): {res['n_ranks']} ranks and "
+          f"{res['buckets']} buckets keep averaging (within "
+          f"{res['max_abs_err']:.3g} of the float64 average); the DeviceApi "
+          f"kept across it is stale and refused a step: "
+          f"{res['stale_refused']}; a fresh one ran a step of every bucket")
+    return res
+
+
 def check_average(per_rank: list, averaged: list) -> float:
     """Every rank's OCCL-averaged grads within rtol 1e-4 / atol 1e-6 of the
     float64 average of the per-rank grads; returns the max abs error."""
@@ -1470,6 +1982,19 @@ def main(argv=None) -> int:
         r["supersteps"] for v in comp.values() for r in v["runs"])
     free_card()
     main_path("train record", lambda: phase_train_record(device))
+    moe = main_path("moe record", lambda: phase_moe_record(device))
+    assert paths["moe record"][0] >= sum(
+        moe[m]["supersteps"] for m in MOE_STEPS)
+    serving = main_path("serving", lambda: phase_serving(device, card))
+    assert paths["serving"][0] >= sum(r["supersteps"]
+                                      for r in serving.values())
+    main_path("evict", lambda: phase_evict(device))
+    free_card()
+    full = main_path("moe fullwidth",
+                     lambda: phase_moe_fullwidth(device, card))
+    assert paths["moe fullwidth"][0] >= sum(
+        full[m]["supersteps"] for m in MOE_STEPS)
+    free_card()
     vit = main_path("vit", lambda: phase_vit(device, card))
     assert paths["vit"][0] >= sum(r["supersteps"] for r in vit["host_steps"])
     free_card()

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense family and ViT (the paper's model)."""
+"""Model zoo of the port: the dense and moe families and ViT (the paper's
+model)."""
 from .io import TensorSpec, train_specs
 from .transformer import Model, build_model
 

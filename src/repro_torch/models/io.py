@@ -1,6 +1,6 @@
 """Input specs of a training batch for an (arch x shape-cell).
 
-PyTorch port of ``repro.models.io.train_specs`` for the dense and ViT
+PyTorch port of ``repro.models.io.train_specs`` for the dense, moe and ViT
 families: :class:`TensorSpec` stand-ins (shape and dtype, no allocation).
 Modality frontends are stubs, as in the reference: ``[vit]`` gets patch
 embeddings.
@@ -25,7 +25,7 @@ def train_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
     if cfg.family == "vit":
         return {"patches": TensorSpec((B, cfg.vis_tokens, cfg.d_model), cdt),
                 "labels": TensorSpec((B,), torch.int32)}
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"train_specs for the {cfg.family} family is not ported yet "
             "(ROADMAP.md, 'Modules to port', item 8)")

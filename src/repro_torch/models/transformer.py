@@ -1,4 +1,4 @@
-"""The model zoo's training path for the dense and ViT families.
+"""The model zoo's training path for the dense, moe and ViT families.
 
 PyTorch port of ``repro.models.transformer``: one functional ``Model`` per
 architecture,
@@ -16,9 +16,12 @@ the stack (the reference's ``lax.scan``); ``cfg.remat`` other than
 distinguished from ``"full"``).  ``loss_fn`` casts every parameter to
 ``cfg.compute_dtype`` first, as the reference does.
 
+The moe family's blocks are :mod:`repro_torch.models.moe` (each layer adds
+its load-balance loss to the trunk's aux term, weighted 0.01 in the loss).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md,
-"Modules to port"): the moe, ssm, hybrid, encdec and vlm families (item
-8), ``prefill`` and ``decode_step`` (item 10, serving).
+"Modules to port"): the ssm, hybrid, encdec and vlm families (item 8),
+``prefill`` and ``decode_step`` (item 10, serving).
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..tree import tree_map
 from . import attention as A
+from . import moe as M
 from .layers import (cross_entropy, gelu_mlp, layer_norm, ninit, rms_norm,
                      rope, swiglu)
 
 VOCAB_PAD = 256   # Megatron-style: pad the vocab to a multiple of 256.
-FAMILIES = ("dense", "vit")
+FAMILIES = ("dense", "moe", "vit")
 
 
 def padded_vocab(v: int) -> int:
@@ -190,13 +194,18 @@ class Model:
             raise _not_ported(f"the {fam} family", 8)
         V = padded_vocab(cfg.vocab)
         p: dict[str, Any] = {}
-        if fam == "dense":
+        if fam in ("dense", "moe"):
             p["embed"] = ninit(seed, "embed", (V, cfg.d_model), 0.02, dt,
                                device)
+            if fam == "dense":
+                block = lambda i: {"mlp": init_mlp(seed, f"l{i}/mlp", cfg,
+                                                   dt, device)}
+            else:
+                block = lambda i: {"moe": M.init_moe_block(
+                    seed, f"l{i}/moe", cfg, dt, device)}
             p["layers"] = _stack([{
                 "attn": init_attn(seed, f"l{i}/attn", cfg, dt, device),
-                "mlp": init_mlp(seed, f"l{i}/mlp", cfg, dt, device),
-            } for i in range(cfg.n_layers)])
+                **block(i)} for i in range(cfg.n_layers)])
             p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
                                           device=device)
             p["lm_head"] = ninit(seed, "lm_head", (cfg.d_model, V), 0.02,
@@ -220,18 +229,27 @@ class Model:
 
     # ------------------------------------------------------------------
     def _trunk_train(self, params, x):
+        """The decoder stack: (x, summed aux load-balance loss)."""
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family == "dense":
+            def body(h, lp):
+                h = attn_train(cfg, lp["attn"], h)
+                return mlp_apply(lp["mlp"], h, "swiglu"), None
+        elif cfg.family == "moe":
+            def body(h, lp):
+                h = attn_train(cfg, lp["attn"], h)
+                y, a = M.moe_forward(cfg, lp["moe"], h)
+                return h + y, a
+        else:
             raise _not_ported(f"the {cfg.family} trunk", 8)
 
-        def body(h, lp):
-            h = attn_train(cfg, lp["attn"], h)
-            return mlp_apply(lp["mlp"], h, "swiglu")
-
         body = _remat(body, cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in _layers(params["layers"], cfg.n_layers):
-            x = body(x, lp)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = body(x, lp)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------------
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
@@ -263,7 +281,7 @@ class Model:
             return -torch.mean(
                 torch.sum(F.log_softmax(logits, dim=-1) * onehot, dim=-1))
 
-        if fam != "dense":
+        if fam not in ("dense", "moe"):
             raise _not_ported(f"the {fam} family", 8)
         x = params["embed"][batch["tokens"].long()]
         x, aux = self._trunk_train(params, x)

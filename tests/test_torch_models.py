@@ -11,7 +11,11 @@ Parameters are carried across from the reference's init
   matmul outputs round at 2^-8; a one-ulp difference in one activation
   moves the gradients of everything upstream of it);
 * layers, attention and AdamW in float32 at ``rtol=1e-5`` (AdamW's new
-  parameters at ``rtol=1e-6``).
+  parameters at ``rtol=1e-6``);
+* the moe block against the reference's at ``rtol=1e-5, atol=1e-9``
+  (outputs are about 1e-4; the routing is the same, the products sum in
+  another order), and against the dense oracle and between its two
+  combines at the reference's own ``rtol=2e-4, atol=2e-5``.
 
 Leaf order and shapes equal ``jax.tree_util.tree_leaves`` — at full size
 for ViT-Base too (``jax.eval_shape`` against the meta device) — since they
@@ -27,8 +31,10 @@ import torch
 
 import repro.models.attention as JA
 import repro.models.layers as JL
+import repro.models.moe as JM
 import repro_torch.models.attention as TA
 import repro_torch.models.layers as TL
+import repro_torch.models.moe as TM
 from repro.configs import get_config as jget
 from repro.configs.base import ShapeCell as JCell
 from repro.data.pipeline import SyntheticPipeline as JPipe
@@ -51,7 +57,7 @@ from repro_torch.train.step import make_grads_step, make_train_step
 from repro_torch.tree import tree_leaves
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-ARCHS = ("vit-base", "qwen3-0.6b")
+ARCHS = ("vit-base", "qwen3-0.6b", "deepseek-moe-16b")
 
 
 def configs(arch, compute_dtype=None):
@@ -173,11 +179,62 @@ def test_attention_matches_reference(monkeypatch, mode, window, prefix,
 
 
 # ---------------------------------------------------------------------------
+# the moe block (models/moe.py)
+# ---------------------------------------------------------------------------
+
+def moe_setup(capacity_factor, seed):
+    jc, tc = configs("deepseek-moe-16b")
+    jc = dataclasses.replace(jc, capacity_factor=capacity_factor)
+    tc = dataclasses.replace(tc, capacity_factor=capacity_factor)
+    jp = JM.init_moe_block(jax.random.PRNGKey(0), "t", jc, jnp.float32)
+    tp = params_from_numpy(jnp_tree(jp), "cpu")
+    x = (np.random.RandomState(seed).randn(2, 8, jc.d_model) * 0.5).astype(
+        np.float32)
+    return jc, jp, tc, tp, x
+
+
+@pytest.mark.parametrize("combine", ["gather", "scatter"])
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
+def test_moe_forward_matches_reference(monkeypatch, combine,
+                                       capacity_factor):
+    """Both combines, without drops (cf 8) and with them (cf 1.25)."""
+    monkeypatch.setenv("REPRO_MOE_COMBINE", combine)
+    jc, jp, tc, tp, x = moe_setup(capacity_factor, 2)
+    jy, jaux = JM.moe_forward(jc, jp, jnp.asarray(x))
+    ty, taux = TM.moe_forward(tc, tp, t(x))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-9)
+    np.testing.assert_allclose(taux.numpy(), np.asarray(jaux), rtol=1e-6)
+
+
+def test_moe_dispatch_matches_dense_oracle():
+    jc, jp, tc, tp, x = moe_setup(8.0, 2)      # no drops
+    y, aux = TM.moe_forward(tc, tp, t(x))
+    y_ref = TM.moe_forward_dense_ref(tc, tp, t(x))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(
+        y_ref.numpy(), np.asarray(JM.moe_forward_dense_ref(
+            jc, jp, jnp.asarray(x))), rtol=1e-5, atol=1e-9)
+    assert np.isfinite(float(aux))
+
+
+def test_moe_combine_scatter_matches_gather(monkeypatch):
+    _, _, tc, tp, x = moe_setup(8.0, 4)
+    y_g, _ = TM.moe_forward(tc, tp, t(x))
+    monkeypatch.setenv("REPRO_MOE_COMBINE", "scatter")
+    y_s, _ = TM.moe_forward(tc, tp, t(x))
+    np.testing.assert_allclose(y_g.numpy(), y_s.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
 # the model: leaf order, loss and gradients
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,reduced", [("vit-base", True),
                                           ("qwen3-0.6b", True),
+                                          ("deepseek-moe-16b", True),
                                           ("vit-base", False)])
 def test_leaf_order_and_shapes_equal_reference(arch, reduced):
     jc, tc = jget(arch), tget(arch)
@@ -244,7 +301,7 @@ def test_init_is_seeded_and_order_free():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(tget("deepseek-moe-16b").reduced()).init(0, "cpu")
+        build_model(tget("mamba2-2.7b").reduced()).init(0, "cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         build_model(tget("qwen3-0.6b").reduced()).prefill({}, {})
 
