@@ -90,6 +90,24 @@ Phases (each raises on failure; the script then exits non-zero):
       to the float64 average of the per-rank grads (rtol 1e-4, atol 1e-6)
       and every bucket completed once per rank; wall per step, supersteps,
       ``fused_burst`` launches, samples/s and the record's modeled step;
+   g. (runs after e) ``examples/serve_batched.py`` on the port: llama3-8b
+      ``.reduced()``, 10 requests, batch 4, prompt_len 16: the engine
+      alone, then with its ``ServingQos`` fabric with preemption off and
+      on (decode p99 258 and 6 supersteps; the background drains), then a
+      decode submitted while a background burst holds the lane (4
+      preempts); every count held to the reference's, and at least one
+      ``fused_burst`` launch per superstep ticked (7h too);
+   h. (runs after g, before f; the card is emptied on each side)
+      Llama-3-8B at full width and depth (8.03 G parameters, bf16 compute)
+      served by ``ServingEngine`` (batch 8, prompt_len 1024, max_len 1080)
+      with ``launch/serve.py --qos``'s fabric: 24 seeded requests
+      (prompts of 256-1024 tokens, 8-48 new tokens, so slots recycle
+      mid-flight); engine build time and peak memory,
+      tokens/s, model ms per prefill and per decode step beside the
+      decode byte bound and the prefill TFLOP/s, QoS ms per event and its
+      digest; token and QoS invariants, every logit finite, and the cache
+      check (prefill of 1024 tokens + one decode step against a prefill of
+      1025) in bf16 and on the same parameters in float32;
 8. one profiled launch of 32 supersteps each at the flat and the composite
    real-size configs and at the ViT cell's runtime shape (R=4): host wall
    time against device kernel time per superstep, the device's idle share,
@@ -107,6 +125,8 @@ repository (the port's sources are not beside it).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import itertools
 import json
 import pathlib
@@ -249,8 +269,12 @@ def runtime(core, cfg: dict, device):
 
 
 def free_card() -> None:
+    """Return the last phase's device memory: collect its garbage first
+    (a runtime's objects hold reference cycles, so its heaps outlive the
+    phase until the cyclic collector runs), then empty PyTorch's cache."""
     import torch
 
+    gc.collect()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1578,6 +1602,407 @@ def phase_evict(device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7g: examples/serve_batched.py on the port (the engine, QoS on / off)
+# ---------------------------------------------------------------------------
+
+# examples/serve_batched.py at its defaults: llama3-8b .reduced(), 10
+# requests of 4-15 prompt tokens (RandomState(0)) and 12 new tokens each,
+# batch 4, prompt_len 16, max_len 96; its part 2 fabric, with preemption on
+# and off; its part 3 fabric for the mid-burst decode.
+SERVE_BATCHED = dict(arch="llama3-8b", n_requests=10, max_new=12, batch=4,
+                     prompt_len=16, seed=0)
+SERVE_BATCHED_QOS = dict(n_ranks=4, decode_elems=256, prefill_elems=1024,
+                         background_elems=4096, background_buckets=2,
+                         prio_aging_quantum=8)
+MID_BURST_QOS = dict(n_ranks=4, decode_elems=256, background_elems=4096,
+                     preemption=True)
+
+
+def tenant(n: int, done: int, p50=None, p99=None, mean=None) -> dict:
+    """One class's entry of ``ServingQos.summary()`` (None: no sample)."""
+    return {"submitted": n, "completed": done, "p50": p50, "p99": p99,
+            "mean": mean}
+
+
+def digest(pre: bool, steps: int, bg: dict, prefill: dict, decode: dict
+           ) -> dict:
+    """A ``ServingQos.summary()`` with no preempts, as the engine runs
+    below end (their preempts happen only in the mid-burst check)."""
+    return {"preemption": pre, "supersteps": steps, "preempts": 0,
+            "background": bg, "prefill": prefill, "decode": decode}
+
+
+# The reference's counts on the same traffic (structural: the CPU test
+# holds the port's run to them and to the reference's engine and fabric).
+# "ticked": the fabric's supersteps after the final drain.
+_ENGINE = {"prefills": 3, "decode_steps": 33, "tokens": 120,
+           "admissions": 10}
+SERVE_BATCHED_COUNTS = {
+    "alone": _ENGINE,
+    "mid_burst": {"latency": 6, "preempts": 4, "supersteps": 133},
+    "preempt_off": {
+        "qos": digest(False, 4815, tenant(36, 36, 199.5, 267.0, 196.5),
+                      tenant(3, 3, 15.0, 15.0, 15.0),
+                      tenant(33, 33, 258.0, 258.0, 143.45454545454547)),
+        "background": [36, 36], "ticked": 4815, **_ENGINE},
+    "preempt_on": {
+        "qos": digest(True, 279, tenant(2, 0),
+                      tenant(3, 3, 15.0, 15.0, 15.0),
+                      tenant(33, 33, 6.0, 6.0, 6.0)),
+        "background": [2, 2], "ticked": 531, **_ENGINE}}
+# Phase 7h: Llama-3-8B (src/repro_torch/configs/llama3_8b.py, unchanged) at
+# full width and depth, bf16 compute, batch 8, prompt_len 1024, max_len
+# 1080, with launch/serve.py --qos's fabric (reference default sizes); 24
+# requests, max_new_tokens uniform in 8-48 and prompt lengths uniform in
+# 256-1024 (drawn in that order from the seed, so the counts do not depend
+# on the prompt lengths), so slots recycle mid-flight.
+LLAMA_SERVE = dict(arch="llama3-8b", batch=8, prompt_len=1024, max_len=1080,
+                   n_requests=24, prompt_min=256, new_min=8, new_max=48,
+                   seed=17)
+LLAMA_QOS = dict(n_ranks=4, preemption=True, prio_aging_quantum=8)
+# Its counts (structural: the CPU test runs the same traffic through the
+# reduced model at prompt_len 16 and holds them).
+LLAMA_COUNTS = {
+    "prefills": 14, "decode_steps": 101, "tokens": 680, "admissions": 24,
+    "requests": 24,
+    "qos": digest(True, 931, tenant(2, 0), tenant(14, 14, 15.0, 15.0, 15.0),
+                  tenant(101, 101, 6.0, 6.0, 6.0)),
+    "background": [2, 2], "drain_supersteps": 252, "ticked": 1183}
+# Prefill of S tokens (pad_to) then one decode step against the last
+# position of a prefill over the same S + 1 tokens: relative L2 bound of
+# the logits by compute dtype (tests/test_torch_serving.py states them).
+# Phase 7h runs it in bfloat16 and, on the same parameters upcast, in
+# float32.
+CACHE_CHECK_REL_L2 = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def batched_requests(n: int, vocab: int, max_new: int, rng) -> list:
+    """``examples/serve_batched.py``'s ``_reqs`` on the port."""
+    from repro_torch.serving import Request
+
+    return [Request(rid=i,
+                    prompt=rng.randint(0, vocab, size=rng.randint(4, 16)),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def serve_batched(device, spec: dict = SERVE_BATCHED) -> dict:
+    """``examples/serve_batched.py``'s three parts on the port: (1) the
+    engine alone, (2) the engine with the QoS fabric, preemption off then
+    on (its ``stats["qos"]`` and the background tenant after a drain),
+    (3) a decode submitted while a background burst holds the lane."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine, ServingQos, TrafficClass
+
+    cfg = get_config(spec["arch"]).reduced()
+
+    def engine(qos=None):
+        e = ServingEngine(cfg, batch_size=spec["batch"],
+                          prompt_len=spec["prompt_len"], qos=qos,
+                          device=device)
+        for r in batched_requests(spec["n_requests"], cfg.vocab,
+                                  spec["max_new"],
+                                  np.random.RandomState(spec["seed"])):
+            e.submit(r)
+        t0 = time.perf_counter()
+        done = e.run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        assert e.stats["tokens"] == sum(len(r.out_tokens) for r in done)
+        return e, done, wall
+
+    e, done, wall = engine()
+    out = {"alone": dict(e.stats, requests=len(done), wall_s=wall,
+                         first_tokens=[r.out_tokens[:8] for r in done[:4]])}
+    for pre in (False, True):
+        qos = ServingQos(**SERVE_BATCHED_QOS, preemption=pre, device=device)
+        e, done, wall = engine(qos)
+        qos.drain()             # bounded starvation: bursts all land
+        bg = qos.tenants[TrafficClass.BACKGROUND]
+        out["preempt_on" if pre else "preempt_off"] = {
+            "qos": e.stats.pop("qos"), "stats": dict(e.stats),
+            "requests": len(done), "wall_s": wall,
+            "background": [bg.completed, bg.submitted],
+            "ticked": qos.summary()["supersteps"]}
+    qos = ServingQos(**MID_BURST_QOS, device=device)
+    qos.submit_background()
+    qos.advance(2)              # the burst holds the lane mid-superstep
+    lat = qos.wait(qos.submit_decode())
+    qos.drain()
+    out["mid_burst"] = {"latency": lat,
+                        "preempts": qos.summary()["preempts"],
+                        "supersteps": qos.summary()["supersteps"]}
+    return out
+
+
+def no_nan(tree):
+    """``tree`` with every NaN float replaced by None (a tenant with no
+    latency sample has NaN percentiles), so that ``==`` compares it."""
+    if isinstance(tree, dict):
+        return {k: no_nan(v) for k, v in tree.items()}
+    if isinstance(tree, float) and tree != tree:
+        return None
+    return tree
+
+
+def serve_batched_counts(res: dict) -> dict:
+    """The structural part of :func:`serve_batched`'s result (no walls,
+    no tokens): what the card must reproduce."""
+    keep = ("prefills", "decode_steps", "tokens", "admissions")
+    out = {"alone": {k: res["alone"][k] for k in keep},
+           "mid_burst": res["mid_burst"]}
+    for key in ("preempt_off", "preempt_on"):
+        r = res[key]
+        out[key] = {"qos": r["qos"], "background": r["background"],
+                    "ticked": r["ticked"],
+                    **{k: r["stats"][k] for k in keep}}
+    return no_nan(out)
+
+
+def phase_serve_batched(device, card: str) -> dict:
+    res = serve_batched(device)
+    a = res["alone"]
+    print(f"[serve batched] engine alone: {a['requests']} requests, "
+          f"{a['tokens']} tokens, {a['prefills']} prefills, "
+          f"{a['decode_steps']} decode steps in {a['wall_s']:.3f} s; first "
+          f"tokens {a['first_tokens']} [{card}]")
+    for key in ("preempt_off", "preempt_on"):
+        r = res[key]
+        q = r["qos"]
+        print(f"[serve batched] {key}: decode p50 {q['decode']['p50']:g} / "
+              f"p99 {q['decode']['p99']:g} supersteps, prefill p99 "
+              f"{q['prefill']['p99']:g}, {q['preempts']} preempts, "
+              f"{q['supersteps']} supersteps, background "
+              f"{r['background'][0]}/{r['background'][1]} after the drain; "
+              f"engine {r['wall_s']:.3f} s [{card}]")
+    m = res["mid_burst"]
+    print(f"[serve batched] mid-burst decode: {m['latency']} supersteps, "
+          f"{m['preempts']} preempts [{card}]")
+    on, off = res["preempt_on"]["qos"], res["preempt_off"]["qos"]
+    assert on["decode"]["p99"] < off["decode"]["p99"], (on, off)
+    for key in ("preempt_off", "preempt_on"):
+        done, submitted = res[key]["background"]
+        assert submitted > 0 and done == submitted, res[key]
+    assert m["preempts"] > 0, m
+    got = serve_batched_counts(res)
+    assert got == SERVE_BATCHED_COUNTS, got
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7h: Llama-3-8B served at full width and depth over the QoS fabric
+# ---------------------------------------------------------------------------
+
+def llama_requests(spec: dict, vocab: int) -> list:
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(spec["seed"])
+    n = spec["n_requests"]
+    news = rng.randint(spec["new_min"], spec["new_max"] + 1, n)
+    lens = rng.randint(spec["prompt_min"], spec["prompt_len"] + 1, n)
+    return [Request(rid=i, prompt=rng.randint(0, vocab, size=int(lens[i]),
+                                              dtype=np.int32),
+                    max_new_tokens=int(news[i])) for i in range(n)]
+
+
+def cache_check(model, params, tokens, pad_to: int) -> dict:
+    """``prefill`` of ``tokens[:, :-1]`` (cache padded to ``pad_to``) then
+    one ``decode_step`` of the last token, against the last position
+    of a ``prefill`` over all of ``tokens``: relative L2 and max abs error
+    of the logits, and the share of rows whose argmax agree."""
+    import torch
+
+    S = tokens.shape[1] - 1
+    V = model.cfg.vocab
+    _, cache = model.prefill(params, {"tokens": tokens[:, :S]}, pad_to=pad_to)
+    got, _ = model.decode_step(params, cache, tokens[:, S])
+    del cache
+    want, _ = model.prefill(params, {"tokens": tokens})
+    got, want = got[:, :V].double(), want[:, 0, :V].double()
+    assert bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    return {"rel_l2": float((got - want).norm() / want.norm()),
+            "max_abs": float((got - want).abs().max()),
+            "scale": float(want.abs().max()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .double().mean())}
+
+
+def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
+                    qos_kw: dict = LLAMA_QOS) -> dict:
+    """``ServingEngine`` with ``launch/serve.py --qos``'s fabric over
+    ``spec``'s traffic; every logit held finite, the token and QoS
+    invariants held, then :func:`cache_check` on ``batch`` full-length
+    prompts.  Model and QoS calls timed on the host clock, each ended by a
+    device sync."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine, ServingQos, TrafficClass
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qos = ServingQos(**qos_kw, device=device)
+    eng = ServingEngine(cfg, batch_size=spec["batch"],
+                        prompt_len=spec["prompt_len"],
+                        max_len=spec["max_len"], qos=qos, device=device)
+    _sync(device)
+    leaves = tree_leaves(eng.params)
+    res = {"init_s": time.perf_counter() - t0,
+           "n_params": sum(a.numel() for a in leaves),
+           "param_bytes": sum(a.numel() * a.element_size() for a in leaves),
+           "embed_bytes": eng.params["embed"].numel()
+           * eng.params["embed"].element_size()}
+    if cuda:
+        res["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    model_s = split_calls(eng, ("_prefill", "_decode"), device)
+    qos_s = split_calls(qos, ("prefill_event", "decode_event"), device)
+    finite = [True]
+
+    def checked(fn):
+        def call(*a):
+            logits, cache = fn(*a)
+            finite[0] &= bool(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    eng._prefill = checked(eng._prefill)
+    eng._decode = checked(eng._decode)
+    reqs = llama_requests(spec, cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    done = eng.run()
+    _sync(device)
+    res["wall_s"] = time.perf_counter() - t0
+    for name in ("_prefill", "_decode"):
+        delattr(eng, name)
+    for name in ("prefill_event", "decode_event"):
+        delattr(qos, name)
+    st = eng.stats
+    q = st["qos"]
+    bg = qos.tenants[TrafficClass.BACKGROUND]
+    res["drain_supersteps"] = qos.drain()
+    res["background"] = [bg.completed, bg.submitted]
+    res["ticked"] = qos.summary()["supersteps"]
+    res.update({k: st[k] for k in ("prefills", "decode_steps", "tokens",
+                                   "admissions")})
+    res["qos"] = q
+    res["requests"] = len(done)
+    res["all_finite"] = finite[0]
+    res["model_s"] = model_s
+    res["qos_s"] = qos_s
+    assert len(done) == len(reqs) == len({r.rid for r in done})
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in done)
+    assert st["tokens"] == sum(len(r.out_tokens) for r in done), st
+    assert q["decode"]["completed"] == st["decode_steps"], (q, st)
+    assert q["prefill"]["completed"] == st["prefills"], (q, st)
+    assert bg.submitted > 0 and bg.completed == bg.submitted, res
+    assert finite[0]
+    if cuda:
+        res["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    g = torch.Generator(device="cpu").manual_seed(spec["seed"])
+    toks = torch.randint(0, cfg.vocab, (spec["batch"], spec["prompt_len"] + 1),
+                         generator=g, dtype=torch.int32).to(device)
+    res["cache_check"] = cache_check(eng.model, eng.params, toks,
+                                     spec["max_len"])
+    p32 = tree_map(lambda a: a.float(), eng.params)
+    m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    res["cache_check_f32"] = cache_check(m32, p32, toks, spec["max_len"])
+    return res
+
+
+def llama_counts(res: dict) -> dict:
+    """The structural part of :func:`serve_fullwidth`'s result: the
+    engine's counts and the fabric's digest (they follow from the traffic's
+    ``max_new_tokens`` and the batch alone)."""
+    return no_nan({k: res[k] for k in ("prefills", "decode_steps", "tokens",
+                                       "admissions", "requests", "qos",
+                                       "background", "drain_supersteps",
+                                       "ticked")})
+
+
+def phase_serve_fullwidth(device, card: str) -> dict:
+    from repro_torch.configs import get_config
+
+    c = LLAMA_SERVE
+    cfg = get_config(c["arch"])
+    t0 = time.perf_counter()
+    res = serve_fullwidth(device, cfg)
+    res["phase_s"] = time.perf_counter() - t0
+    n_pre, n_dec = res["prefills"], res["decode_steps"]
+    ms = {k: v * 1e3 for k, v in res["model_s"].items()}
+    qms = {k: v * 1e3 for k, v in res["qos_s"].items()}
+    res["prefill_ms"] = ms["_prefill"] / n_pre
+    res["decode_ms"] = ms["_decode"] / n_dec
+    res["qos_prefill_ms"] = qms["prefill_event"] / n_pre
+    res["qos_decode_ms"] = qms["decode_event"] / n_dec
+    # Least decode time: every weight but the embedding table read once,
+    # B embedding rows, the whole padded KV cache read (and one slot
+    # written) -- over the HBM rate.
+    B, L, D = c["batch"], cfg.n_layers, cfg.d_model
+    kv = 2 * L * B * c["max_len"] * cfg.n_kv_heads * cfg.d_head * 2
+    res["kv_cache_bytes"] = kv
+    res["decode_bytes"] = (res["param_bytes"] - res["embed_bytes"]
+                           + B * D * 2 + kv)
+    res["decode_bound_ms"] = res["decode_bytes"] / HBM_BYTES_PER_S * 1e3
+    # Prefill FLOPs: every non-embedding weight at every position (the LM
+    # head at the last one only), plus QK^T and PV over all S x S pairs
+    # (the plain attention computes the masked half too).
+    S = c["prompt_len"]
+    head = D * cfg.vocab
+    dense = res["n_params"] - res["embed_bytes"] // 2 - head
+    attn = 2 * 2 * B * cfg.n_heads * S * S * cfg.d_head * L
+    res["prefill_flop"] = 2 * dense * B * S + 2 * head * B + attn
+    res["prefill_tflops"] = res["prefill_flop"] / res["prefill_ms"] / 1e9
+    q = res["qos"]
+    print(f"[serve fullwidth] {c['arch']} (d_model {D}, {L} layers, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.compute_dtype}): {res['n_params']} "
+          f"parameters, {res['param_bytes']} bytes on the card; engine "
+          f"built in {res['init_s']:.3f} s, peak "
+          f"{res['init_peak_bytes'] / 2**30:.2f} GiB during init [{card}]")
+    print(f"[serve fullwidth] {res['requests']} requests, batch {B}, "
+          f"prompt_len {S}, max_len {c['max_len']}: {n_pre} prefills, "
+          f"{n_dec} decode steps, {res['admissions']} admissions, "
+          f"{res['tokens']} tokens in {res['wall_s']:.3f} s "
+          f"({res['tokens'] / res['wall_s']:.2f} tokens/s); peak "
+          f"{res['serve_peak_bytes'] / 2**30:.2f} GiB while serving, KV "
+          f"cache {kv} bytes [{card}]")
+    print(f"[serve fullwidth] model only (synced host clock): "
+          f"{res['prefill_ms']:.3f} ms per prefill "
+          f"({res['prefill_flop'] / 1e12:.2f} TFLOP, "
+          f"{res['prefill_tflops']:.1f} TFLOP/s), {res['decode_ms']:.3f} ms "
+          f"per decode step against a byte bound of "
+          f"{res['decode_bound_ms']:.3f} ms ({res['decode_bytes']} bytes) "
+          f"[{card}]")
+    print(f"[serve fullwidth] QoS fabric: {res['qos_prefill_ms']:.3f} ms per "
+          f"prefill event, {res['qos_decode_ms']:.3f} ms per decode event; "
+          f"decode p50 {q['decode']['p50']:g} / p99 {q['decode']['p99']:g} "
+          f"supersteps, prefill p99 {q['prefill']['p99']:g}, "
+          f"{q['preempts']} preempts, {q['supersteps']} supersteps, "
+          f"background {res['background'][0]}/{res['background'][1]} after "
+          f"a drain of {res['drain_supersteps']} [{card}]")
+    for key, dt in (("cache_check", cfg.compute_dtype),
+                    ("cache_check_f32", "float32")):
+        cc = res[key]
+        print(f"[serve fullwidth] cache check in {dt} (prefill {S} + one "
+              f"decode step vs prefill {S + 1}, {B} prompts): relative L2 "
+              f"{cc['rel_l2']:.3g} (bound {CACHE_CHECK_REL_L2[dt]:g}), max "
+              f"abs {cc['max_abs']:.3g} of logits up to {cc['scale']:.3g}, "
+              f"argmax agrees in {cc['argmax_agree']:.3f} of the rows "
+              f"[{card}]")
+        assert cc["rel_l2"] <= CACHE_CHECK_REL_L2[dt], (dt, cc)
+    print(f"[serve fullwidth] every logit finite: {res['all_finite']}; "
+          f"phase {res['phase_s']:.1f} s [{card}]")
+    got = llama_counts(res)
+    assert got == LLAMA_COUNTS, got
+    print("[serve fullwidth] summary " + json.dumps(no_nan(res)))
+    return res
+
+
 def check_average(per_rank: list, averaged: list) -> float:
     """Every rank's OCCL-averaged grads within rtol 1e-4 / atol 1e-6 of the
     float64 average of the per-rank grads; returns the max abs error."""
@@ -1994,6 +2419,14 @@ def main(argv=None) -> int:
                      lambda: phase_moe_fullwidth(device, card))
     assert paths["moe fullwidth"][0] >= sum(
         full[m]["supersteps"] for m in MOE_STEPS)
+    free_card()
+    serve = main_path("serve batched",
+                      lambda: phase_serve_batched(device, card))
+    assert paths["serve batched"][0] >= sum(
+        serve[k]["ticked"] for k in ("preempt_off", "preempt_on"))
+    llama = main_path("serve fullwidth",
+                      lambda: phase_serve_fullwidth(device, card))
+    assert paths["serve fullwidth"][0] >= llama["ticked"]
     free_card()
     vit = main_path("vit", lambda: phase_vit(device, card))
     assert paths["vit"][0] >= sum(r["supersteps"] for r in vit["host_steps"])

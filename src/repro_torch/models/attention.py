@@ -1,6 +1,7 @@
-"""Attention: GQA/MQA/MHA masks, plain and blockwise (flash-style) paths.
+"""Attention: GQA/MQA/MHA masks, plain and blockwise (flash-style) paths,
+and KV-cache decode.
 
-PyTorch port of the training half of ``repro.models.attention``.  Shapes:
+PyTorch port of ``repro.models.attention``.  Shapes:
 q [B, S, Hq, dh]; k/v [B, Skv, Hkv, dh]; Hq = Hkv * q_per_kv.  Scores and
 softmax statistics are float32, masked positions add ``NEG_INF``, and the
 stored probabilities take ``_p_dtype()`` before the PV product, which
@@ -8,9 +9,8 @@ accumulates in float32 — the reference's numerics.  These are plain tensor
 math in the reference too (no TPU kernel), so plain PyTorch ops are the
 port.  The knobs read the reference's environment variables
 (``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_KV_BLOCK``, ``REPRO_ATTN_BF16``).
-The recursive-halving causal path (``REPRO_CAUSAL_REC``) and decode
-attention are not ported yet (ROADMAP.md, "Modules to port", items 8 and
-10).
+The recursive-halving causal path (``REPRO_CAUSAL_REC``) is not ported
+yet (ROADMAP.md, "Modules to port", item 8).
 """
 from __future__ import annotations
 
@@ -65,10 +65,11 @@ def _pv(p: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
 
 
 def attention(q, k, v, *, mode: str = "causal", window: int = 0,
-              prefix_len: int = 0, q_offset: int = 0,
+              prefix_len: int = 0, q_offset: int | torch.Tensor = 0,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain O(S^2)-memory attention.  ``kv_len``: optional valid KV length;
-    positions >= kv_len are masked out."""
+    positions >= kv_len are masked out.  ``q_offset`` and ``kv_len`` may be
+    0-d device tensors (decode): nothing reads them on the host."""
     B, Sq, Hq, dh = q.shape
     _, Skv, Hkv, _ = k.shape
     g = Hq // Hkv
@@ -125,3 +126,30 @@ def full_or_blockwise(q, k, v, **kw) -> torch.Tensor:
                 "(ROADMAP.md, 'Modules to port', item 8)")
         return blockwise_attention(q, k, v, **kw)
     return attention(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0
+                     ) -> torch.Tensor:
+    """Single-token decode against a cache [B, Smax, Hkv, dh]; ``pos`` (a
+    0-d int tensor) = the number of valid positions before this token.
+
+    With ``window > 0`` the reference computes the plain result and then
+    replaces it with a second computation over the trailing window
+    (``kv_len - window <= kpos < kv_len``): a plain float32 softmax and a
+    float32 PV product without ``_p_dtype()`` rounding.  Only that second
+    computation runs here; the value is the same."""
+    kv_len = pos + 1
+    if window <= 0:
+        return attention(q, k_cache, v_cache, mode="bidir", window=0,
+                         q_offset=pos, kv_len=kv_len)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    keep = (kpos >= kv_len - window) & (kpos < kv_len)
+    B, Sq, Hq, dh = q.shape
+    _, Skv, Hkv, _ = k_cache.shape
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_cache.float()) / np.sqrt(dh)
+    s = s + torch.where(keep, 0.0, NEG_INF)[None, None, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.reshape(B, Sq, Hq, dh).to(q.dtype)

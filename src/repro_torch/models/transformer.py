@@ -1,10 +1,13 @@
-"""The model zoo's training path for the dense, moe and ViT families.
+"""The model zoo's training and serving paths for the dense, moe and ViT
+families.
 
 PyTorch port of ``repro.models.transformer``: one functional ``Model`` per
 architecture,
 
     init(seed, device) -> params           (nested dict, layers stacked [L])
     loss_fn(params, batch) -> scalar       (the train step's payload)
+    prefill(params, batch, pad_to) -> (last logits [B, 1, V], cache)
+    decode_step(params, cache, tokens) -> (logits [B, V], cache)
 
 Parameters are the reference's nested dicts with the per-layer leaves
 stacked on a leading [L] axis, so :func:`repro_torch.tree.tree_leaves`
@@ -19,9 +22,17 @@ distinguished from ``"full"``).  ``loss_fn`` casts every parameter to
 The moe family's blocks are :mod:`repro_torch.models.moe` (each layer adds
 its load-balance loss to the trunk's aux term, weighted 0.01 in the loss).
 
+Serving (dense and moe): the cache is the reference's dict, ``k`` / ``v``
+stacked [L, B, Smax, KV, dh] (zero-padded to ``pad_to``) and ``pos``, an
+int32 0-d tensor.  ``decode_step`` writes each layer's new k / v into the
+cache IN PLACE at ``min(pos, Smax - 1)`` (the reference's
+``dynamic_update_slice`` position, read on the device, never on the host)
+and so consumes the cache it is given.  The vit family has no serving path
+(``ValueError``, as the reference fails on its missing ``embed``).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md,
 "Modules to port"): the ssm, hybrid, encdec and vlm families (item 8),
-``prefill`` and ``decode_step`` (item 10, serving).
+their ``prefill`` and ``decode_step`` included.
 """
 from __future__ import annotations
 
@@ -108,6 +119,39 @@ def attn_train(cfg, p, x):
     y = A.full_or_blockwise(q, k, v, mode="causal", window=cfg.swa_window)
     B, Sq = x.shape[:2]
     return x + y.reshape(B, Sq, -1) @ p["wo"]
+
+
+def attn_prefill(cfg, p, x):
+    """Like :func:`attn_train`, also returning (k, v) for the cache."""
+    h = rms_norm(x, p["norm"])
+    q, k, v = _qkv(cfg, p, h)
+    y = A.full_or_blockwise(q, k, v, mode="causal", window=cfg.swa_window)
+    B, Sq = x.shape[:2]
+    return x + y.reshape(B, Sq, -1) @ p["wo"], (k, v)
+
+
+def attn_decode(cfg, p, x, kc, vc, pos):
+    """x: [B, 1, D]; kc / vc: [B, Smax, KV, dh], written IN PLACE at
+    ``min(pos, Smax - 1)`` (past the end the last slot is overwritten and
+    ``kv_len > Smax`` masks nothing, as in the reference); pos: 0-d int
+    tensor."""
+    B = x.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h = rms_norm(x, p["norm"])
+    q = (h @ p["wq"]).reshape(B, 1, H, dh)
+    k = (h @ p["wk"]).reshape(B, 1, KV, dh)
+    v = (h @ p["wv"]).reshape(B, 1, KV, dh)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    ppos = torch.broadcast_to(pos, (B, 1))
+    q = rope(q, ppos, cfg.rope_theta)
+    k = rope(k, ppos, cfg.rope_theta)
+    wpos = torch.clamp(pos, max=kc.shape[1] - 1).long().reshape(1)
+    kc.index_copy_(1, wpos, k)
+    vc.index_copy_(1, wpos, v)
+    y = A.decode_attention(q, kc, vc, pos, window=cfg.swa_window)
+    return x + y.reshape(B, 1, -1) @ p["wo"]
 
 
 def init_mlp(seed, path, cfg, dtype, device, kind="swiglu"):
@@ -291,11 +335,67 @@ class Model:
         return cross_entropy(logits, batch["targets"]) + 0.01 * aux
 
     # ------------------------------------------------------------------
+    # serving: prefill + decode
+    # ------------------------------------------------------------------
+    def _serving_family(self, what: str) -> None:
+        fam = self.cfg.family
+        if fam == "vit":
+            raise ValueError(fam)
+        if fam not in ("dense", "moe"):
+            raise _not_ported(f"{what} of the {fam} family", 8)
+
+    def _block_ffn(self, lp, h):
+        if self.cfg.family == "moe":
+            y, _ = M.moe_forward(self.cfg, lp["moe"], h)
+            return h + y
+        return mlp_apply(lp["mlp"], h, "swiglu")
+
+    def _last_logits(self, params, x):
+        x = rms_norm(x, params["final_norm"])
+        return mask_vocab_logits((x @ params["lm_head"]).float(),
+                                 self.cfg.vocab)
+
     def prefill(self, params, batch, pad_to=None):
-        raise _not_ported("prefill (serving)", 10)
+        """Causal pass over ``batch["tokens"]`` [B, S] -> (logits of the
+        last position [B, 1, V], cache).  ``pad_to``: the cache's capacity
+        (prompt + expected decode steps); without it the first decode step
+        has no free slot and overwrites the last cached position."""
+        self._serving_family("prefill")
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        params = tree_map(lambda a: a.to(cdt), params)
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()]
+        B, S = tokens.shape
+        Smax = max(S, pad_to or 0)
+        shape = (cfg.n_layers, B, Smax, cfg.n_kv_heads, cfg.d_head)
+        kc = torch.zeros(shape, dtype=cdt, device=x.device)
+        vc = torch.zeros(shape, dtype=cdt, device=x.device)
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            x, (k, v) = attn_prefill(cfg, lp["attn"], x)
+            kc[i, :, :S] = k
+            vc[i, :, :S] = v
+            x = self._block_ffn(lp, x)
+        cache = {"k": kc, "v": vc,
+                 "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+        return self._last_logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens):
-        raise _not_ported("decode_step (serving)", 10)
+        """tokens: [B] int32 -> (logits [B, V], cache with ``pos + 1``).
+        The input cache is CONSUMED: its ``k`` / ``v`` are written in place
+        and returned in the new cache."""
+        self._serving_family("decode_step")
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        params = tree_map(lambda a: a.to(cdt), params)
+        pos = cache["pos"]
+        x = params["embed"][tokens.long()[:, None]]
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            x = attn_decode(cfg, lp["attn"], x, cache["k"][i],
+                            cache["v"][i], pos)
+            x = self._block_ffn(lp, x)
+        return (self._last_logits(params, x[:, 0]),
+                dict(cache, pos=pos + 1))
 
 
 def build_model(cfg: ArchConfig) -> Model:

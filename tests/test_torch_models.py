@@ -302,8 +302,8 @@ def test_init_is_seeded_and_order_free():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         build_model(tget("mamba2-2.7b").reduced()).init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model(tget("qwen3-0.6b").reduced()).prefill({}, {})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_model(tget("zamba2-1.2b").reduced()).prefill({}, {})
 
 
 # ---------------------------------------------------------------------------
