@@ -84,7 +84,7 @@ Phases (each raises on failure; the script then exits non-zero):
       peak memory;
    f. ViT-Base at full width and depth (86.5 M parameters) over 4
       simulated DP ranks, global batch 128, DDP-sized buckets (6553600
-      elements), slice 1024, burst 8: two host-driven steps of
+      elements), slice 1024, burst 8: one host-driven step of
       ``launch/train.py::run_occl_dp``, then one overlapped grads step at 8
       ticks per boundary and one at 0; each step's OCCL-averaged grads held
       to the float64 average of the per-rank grads (rtol 1e-4, atol 1e-6)
@@ -108,6 +108,24 @@ Phases (each raises on failure; the script then exits non-zero):
       digest; token and QoS invariants, every logit finite, and the cache
       check (prefill of 1024 tokens + one decode step against a prefill of
       1025) in bf16 and on the same parameters in float32;
+   i. (runs after h, the card emptied on each side) the default training
+      path at Qwen3-0.6B's full width (751894528 parameters, batch 8, seq
+      64): ``TrainController`` with async checkpoints every 4 steps (keep
+      2; 9.02 GB each, in a temporary directory under ``build/``, free
+      disk checked first) and a failure injected before step 6, run to
+      step 8: one restart, step 4's replayed loss bitwise its first run's,
+      step 5's within 1e-5; then ``launch/train.py``'s ``main`` with
+      ``--resume --steps 10`` restores a state bit-equal to the
+      controller's final one and runs 2 steps; ms per step, seconds per
+      save (host copy, write, crc) and per restore, GB written, peak
+      memory.  The path launches no kernel (asserted);
+   j. Mamba2-2.7B at full width and depth (3.13 G parameters, bf16
+      compute) served as in h on the same 24 requests (the counts must
+      be h's), its cache check a prefill of 256 tokens + 256 decode steps
+      against a prefill of 512 (logits, final state and conv states, in
+      bf16 and float32, within ``SSM_CACHE_REL_L2``); then two
+      ``make_train_step`` steps at full width (finite losses, peak
+      memory);
 8. one profiled launch of 32 supersteps each at the flat and the composite
    real-size configs and at the ViT cell's runtime shape (R=4): host wall
    time against device kernel time per superstep, the device's idle share,
@@ -116,8 +134,9 @@ Phases (each raises on failure; the script then exits non-zero):
    profiler's count of that kernel.  The profiles run last: a step run in
    the same process after the profiler has run paid more wall per
    superstep;
-9. a ``{"kernels": [...]}`` JSON line, the card line again, and the last
-   line ``{"ok": true, "device": {...}}``.
+9. the script's total seconds, the card line again, a
+   ``{"kernels": [...]}`` JSON line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It fails without a CUDA device, and when run outside a checkout of the
 repository (the port's sources are not beside it).
@@ -188,7 +207,7 @@ RECORD_ITERS = 3
 VIT = dict(arch="vit-base", dp=4, batch=128, bucket_elems=6_553_600,
            slice_elems=1024, burst_slices=8)
 VIT_RUNTIME = dict(R=4, C=9, K=24, heap_elems=692_308_224)
-VIT_HOST_STEPS = 2
+VIT_HOST_STEPS = 1
 VIT_OVERLAP_TICKS = 8
 VIT_DRAIN_ITERS = 1 << 15     # drain ticks of 16 supersteps (about 7000 run)
 # BENCH_collectives.json "training" -> "dense": qwen3-0.6b reduced, dp 4,
@@ -1675,6 +1694,17 @@ LLAMA_COUNTS = {
 # Phase 7h runs it in bfloat16 and, on the same parameters upcast, in
 # float32.
 CACHE_CHECK_REL_L2 = {"float32": 1e-4, "bfloat16": 5e-2}
+# Phase 7j's ssm cache check: a prefill of 256 tokens (one ssm_chunk) then
+# 256 decode steps against a prefill of 512: relative L2 bounds of the last
+# logits and of the final cache (the f32 ``state`` and the conv states) by
+# compute dtype.  Set before the first card run from CPU runs of the same
+# check at full depth (64 layers), 2 prompts, d_model 256 / 512 / 1024:
+# logits in bf16 0.022 / 0.035 / 0.045 (state 0.020 / 0.033 / 0.043), in
+# f32 1.6e-06 / - / 6.5e-06; the bounds leave room for d_model 2560.
+SSM_CACHE = ("state", "conv_x", "conv_B", "conv_C")
+SSM_CACHE_REL_L2 = {
+    "float32": {"rel_l2": 1e-4, **dict.fromkeys(SSM_CACHE, 1e-4)},
+    "bfloat16": {"rel_l2": 0.15, **dict.fromkeys(SSM_CACHE, 0.15)}}
 
 
 def batched_requests(n: int, vocab: int, max_new: int, rng) -> list:
@@ -1805,35 +1835,45 @@ def llama_requests(spec: dict, vocab: int) -> list:
                     max_new_tokens=int(news[i])) for i in range(n)]
 
 
-def cache_check(model, params, tokens, pad_to: int) -> dict:
-    """``prefill`` of ``tokens[:, :-1]`` (cache padded to ``pad_to``) then
-    one ``decode_step`` of the last token, against the last position
-    of a ``prefill`` over all of ``tokens``: relative L2 and max abs error
-    of the logits, and the share of rows whose argmax agree."""
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def cache_check(model, params, tokens, pad_to, n_decode: int = 1) -> dict:
+    """``prefill`` of ``tokens`` but the last ``n_decode`` (cache padded to
+    ``pad_to``), then one ``decode_step`` for each of those, against a
+    ``prefill`` over all of ``tokens``: relative L2 and max abs error of the
+    last logits, the share of rows whose argmax agree, and for an ssm
+    cache the relative L2 of its final ``state`` and conv states."""
     import torch
 
-    S = tokens.shape[1] - 1
+    S = tokens.shape[1] - n_decode
     V = model.cfg.vocab
     _, cache = model.prefill(params, {"tokens": tokens[:, :S]}, pad_to=pad_to)
-    got, _ = model.decode_step(params, cache, tokens[:, S])
-    del cache
-    want, _ = model.prefill(params, {"tokens": tokens})
+    for i in range(S, tokens.shape[1]):
+        got, cache = model.decode_step(params, cache, tokens[:, i])
+    want, full = model.prefill(params, {"tokens": tokens})
     got, want = got[:, :V].double(), want[:, 0, :V].double()
     assert bool(torch.isfinite(got).all() and torch.isfinite(want).all())
-    return {"rel_l2": float((got - want).norm() / want.norm()),
-            "max_abs": float((got - want).abs().max()),
-            "scale": float(want.abs().max()),
-            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
-                                  .double().mean())}
+    res = {"rel_l2": rel_l2(got, want),
+           "max_abs": float((got - want).abs().max()),
+           "scale": float(want.abs().max()),
+           "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                 .double().mean())}
+    for k in SSM_CACHE:
+        if k in cache:
+            res[k] = rel_l2(cache[k], full[k])
+    return res
 
 
 def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
                     qos_kw: dict = LLAMA_QOS) -> dict:
     """``ServingEngine`` with ``launch/serve.py --qos``'s fabric over
     ``spec``'s traffic; every logit held finite, the token and QoS
-    invariants held, then :func:`cache_check` on ``batch`` full-length
-    prompts.  Model and QoS calls timed on the host clock, each ended by a
-    device sync."""
+    invariants held, then :func:`cache_check` on ``batch`` prompts of
+    :func:`check_lengths`.  Model and QoS calls timed on the host clock,
+    each ended by a device sync."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine, ServingQos, TrafficClass
@@ -1904,14 +1944,24 @@ def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
     if cuda:
         res["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
     g = torch.Generator(device="cpu").manual_seed(spec["seed"])
-    toks = torch.randint(0, cfg.vocab, (spec["batch"], spec["prompt_len"] + 1),
+    n_pre, n_dec = check_lengths(spec)
+    toks = torch.randint(0, cfg.vocab, (spec["batch"], n_pre + n_dec),
                          generator=g, dtype=torch.int32).to(device)
     res["cache_check"] = cache_check(eng.model, eng.params, toks,
-                                     spec["max_len"])
+                                     spec["max_len"], n_dec)
     p32 = tree_map(lambda a: a.float(), eng.params)
     m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
-    res["cache_check_f32"] = cache_check(m32, p32, toks, spec["max_len"])
+    res["cache_check_f32"] = cache_check(m32, p32, toks, spec["max_len"],
+                                         n_dec)
     return res
+
+
+def check_lengths(spec: dict) -> tuple[int, int]:
+    """(prefill, decode steps) of the cache check: one step after a full
+    prompt, unless ``spec`` names both (an ssm prefill takes whole
+    chunks)."""
+    return spec.get("check_prefill", spec["prompt_len"]), \
+        spec.get("check_decode", 1)
 
 
 def llama_counts(res: dict) -> dict:
@@ -1924,6 +1974,65 @@ def llama_counts(res: dict) -> dict:
                                        "ticked")})
 
 
+def serving_times(res: dict) -> None:
+    """Per-call model and QoS times of :func:`serve_fullwidth`'s result."""
+    n_pre, n_dec = res["prefills"], res["decode_steps"]
+    ms = {k: v * 1e3 for k, v in res["model_s"].items()}
+    qms = {k: v * 1e3 for k, v in res["qos_s"].items()}
+    res["prefill_ms"] = ms["_prefill"] / n_pre
+    res["decode_ms"] = ms["_decode"] / n_dec
+    res["qos_prefill_ms"] = qms["prefill_event"] / n_pre
+    res["qos_decode_ms"] = qms["decode_event"] / n_dec
+    res["decode_bound_ms"] = res["decode_bytes"] / HBM_BYTES_PER_S * 1e3
+    res["prefill_tflops"] = res["prefill_flop"] / res["prefill_ms"] / 1e9
+
+
+def report_serving(tag: str, res: dict, spec: dict, cfg, card: str,
+                   bounds: dict) -> None:
+    """Print :func:`serve_fullwidth`'s result (its model description
+    printed by the caller), hold the cache checks to ``bounds`` (compute
+    dtype -> {key: bound}) and the counts to ``LLAMA_COUNTS``."""
+    q = res["qos"]
+    print(f"[{tag}] {res['requests']} requests, batch {spec['batch']}, "
+          f"prompt_len {spec['prompt_len']}, max_len {spec['max_len']}: "
+          f"{res['prefills']} prefills, {res['decode_steps']} decode steps, "
+          f"{res['admissions']} admissions, {res['tokens']} tokens in "
+          f"{res['wall_s']:.3f} s ({res['tokens'] / res['wall_s']:.2f} "
+          f"tokens/s); peak {res['serve_peak_bytes'] / 2**30:.2f} GiB while "
+          f"serving, cache {res['cache_bytes']} bytes [{card}]")
+    print(f"[{tag}] model only (synced host clock): "
+          f"{res['prefill_ms']:.3f} ms per prefill "
+          f"({res['prefill_flop'] / 1e12:.2f} TFLOP, "
+          f"{res['prefill_tflops']:.1f} TFLOP/s), {res['decode_ms']:.3f} ms "
+          f"per decode step against a byte bound of "
+          f"{res['decode_bound_ms']:.3f} ms ({res['decode_bytes']} bytes) "
+          f"[{card}]")
+    print(f"[{tag}] QoS fabric: {res['qos_prefill_ms']:.3f} ms per "
+          f"prefill event, {res['qos_decode_ms']:.3f} ms per decode event; "
+          f"decode p50 {q['decode']['p50']:g} / p99 {q['decode']['p99']:g} "
+          f"supersteps, prefill p99 {q['prefill']['p99']:g}, "
+          f"{q['preempts']} preempts, {q['supersteps']} supersteps, "
+          f"background {res['background'][0]}/{res['background'][1]} after "
+          f"a drain of {res['drain_supersteps']} [{card}]")
+    n_pre, n_dec = check_lengths(spec)
+    for key, dt in (("cache_check", cfg.compute_dtype),
+                    ("cache_check_f32", "float32")):
+        cc = res[key]
+        print(f"[{tag}] cache check in {dt} (prefill {n_pre} + {n_dec} "
+              f"decode steps vs prefill {n_pre + n_dec}, {spec['batch']} "
+              f"prompts): logits relative L2 {cc['rel_l2']:.3g}, max abs "
+              f"{cc['max_abs']:.3g} of logits up to {cc['scale']:.3g}, "
+              f"argmax agrees in {cc['argmax_agree']:.3f} of the rows"
+              + "".join(f", {k} {cc[k]:.3g}" for k in SSM_CACHE if k in cc)
+              + f" (bounds {bounds[dt]}) [{card}]")
+        for k, bound in bounds[dt].items():
+            assert cc[k] <= bound, (dt, k, cc)
+    print(f"[{tag}] every logit finite: {res['all_finite']}; "
+          f"phase {res['phase_s']:.1f} s [{card}]")
+    got = llama_counts(res)
+    assert got == LLAMA_COUNTS, got
+
+
 def phase_serve_fullwidth(device, card: str) -> dict:
     from repro_torch.configs import get_config
 
@@ -1932,22 +2041,14 @@ def phase_serve_fullwidth(device, card: str) -> dict:
     t0 = time.perf_counter()
     res = serve_fullwidth(device, cfg)
     res["phase_s"] = time.perf_counter() - t0
-    n_pre, n_dec = res["prefills"], res["decode_steps"]
-    ms = {k: v * 1e3 for k, v in res["model_s"].items()}
-    qms = {k: v * 1e3 for k, v in res["qos_s"].items()}
-    res["prefill_ms"] = ms["_prefill"] / n_pre
-    res["decode_ms"] = ms["_decode"] / n_dec
-    res["qos_prefill_ms"] = qms["prefill_event"] / n_pre
-    res["qos_decode_ms"] = qms["decode_event"] / n_dec
     # Least decode time: every weight but the embedding table read once,
     # B embedding rows, the whole padded KV cache read (and one slot
     # written) -- over the HBM rate.
     B, L, D = c["batch"], cfg.n_layers, cfg.d_model
     kv = 2 * L * B * c["max_len"] * cfg.n_kv_heads * cfg.d_head * 2
-    res["kv_cache_bytes"] = kv
+    res["cache_bytes"] = kv
     res["decode_bytes"] = (res["param_bytes"] - res["embed_bytes"]
                            + B * D * 2 + kv)
-    res["decode_bound_ms"] = res["decode_bytes"] / HBM_BYTES_PER_S * 1e3
     # Prefill FLOPs: every non-embedding weight at every position (the LM
     # head at the last one only), plus QK^T and PV over all S x S pairs
     # (the plain attention computes the masked half too).
@@ -1956,52 +2057,310 @@ def phase_serve_fullwidth(device, card: str) -> dict:
     dense = res["n_params"] - res["embed_bytes"] // 2 - head
     attn = 2 * 2 * B * cfg.n_heads * S * S * cfg.d_head * L
     res["prefill_flop"] = 2 * dense * B * S + 2 * head * B + attn
-    res["prefill_tflops"] = res["prefill_flop"] / res["prefill_ms"] / 1e9
-    q = res["qos"]
+    serving_times(res)
     print(f"[serve fullwidth] {c['arch']} (d_model {D}, {L} layers, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab}, {cfg.compute_dtype}): {res['n_params']} "
           f"parameters, {res['param_bytes']} bytes on the card; engine "
           f"built in {res['init_s']:.3f} s, peak "
           f"{res['init_peak_bytes'] / 2**30:.2f} GiB during init [{card}]")
-    print(f"[serve fullwidth] {res['requests']} requests, batch {B}, "
-          f"prompt_len {S}, max_len {c['max_len']}: {n_pre} prefills, "
-          f"{n_dec} decode steps, {res['admissions']} admissions, "
-          f"{res['tokens']} tokens in {res['wall_s']:.3f} s "
-          f"({res['tokens'] / res['wall_s']:.2f} tokens/s); peak "
-          f"{res['serve_peak_bytes'] / 2**30:.2f} GiB while serving, KV "
-          f"cache {kv} bytes [{card}]")
-    print(f"[serve fullwidth] model only (synced host clock): "
-          f"{res['prefill_ms']:.3f} ms per prefill "
-          f"({res['prefill_flop'] / 1e12:.2f} TFLOP, "
-          f"{res['prefill_tflops']:.1f} TFLOP/s), {res['decode_ms']:.3f} ms "
-          f"per decode step against a byte bound of "
-          f"{res['decode_bound_ms']:.3f} ms ({res['decode_bytes']} bytes) "
-          f"[{card}]")
-    print(f"[serve fullwidth] QoS fabric: {res['qos_prefill_ms']:.3f} ms per "
-          f"prefill event, {res['qos_decode_ms']:.3f} ms per decode event; "
-          f"decode p50 {q['decode']['p50']:g} / p99 {q['decode']['p99']:g} "
-          f"supersteps, prefill p99 {q['prefill']['p99']:g}, "
-          f"{q['preempts']} preempts, {q['supersteps']} supersteps, "
-          f"background {res['background'][0]}/{res['background'][1]} after "
-          f"a drain of {res['drain_supersteps']} [{card}]")
-    for key, dt in (("cache_check", cfg.compute_dtype),
-                    ("cache_check_f32", "float32")):
-        cc = res[key]
-        print(f"[serve fullwidth] cache check in {dt} (prefill {S} + one "
-              f"decode step vs prefill {S + 1}, {B} prompts): relative L2 "
-              f"{cc['rel_l2']:.3g} (bound {CACHE_CHECK_REL_L2[dt]:g}), max "
-              f"abs {cc['max_abs']:.3g} of logits up to {cc['scale']:.3g}, "
-              f"argmax agrees in {cc['argmax_agree']:.3f} of the rows "
-              f"[{card}]")
-        assert cc["rel_l2"] <= CACHE_CHECK_REL_L2[dt], (dt, cc)
-    print(f"[serve fullwidth] every logit finite: {res['all_finite']}; "
-          f"phase {res['phase_s']:.1f} s [{card}]")
-    got = llama_counts(res)
-    assert got == LLAMA_COUNTS, got
+    report_serving("serve fullwidth", res, c, cfg, card, {
+        dt: {"rel_l2": b} for dt, b in CACHE_CHECK_REL_L2.items()})
     print("[serve fullwidth] summary " + json.dumps(no_nan(res)))
     return res
 
+
+# ---------------------------------------------------------------------------
+# phase 7i: the default training entry point at Qwen3-0.6B's full width
+# ---------------------------------------------------------------------------
+
+# launch/train.py's default path (fabric/ft.py TrainController, async
+# checkpoints) on qwen3-0.6b exactly as src/repro_torch/configs/qwen3_0p6b.py
+# gives it (751894528 parameters; params, m and v in f32: 9.02 GB per
+# checkpoint), at the reference CLI's batch 8 and seq 64: 8 steps with a
+# checkpoint every 4 (keep 2) and a failure injected before step 6, so the
+# loop restores step 4 and replays steps 4 and 5; then launch/train.py's
+# main with --resume --steps 10.
+TRAIN_DEFAULT = dict(arch="qwen3-0.6b", reduced=False, batch=8, seq=64,
+                     ckpt_period=4, keep=2, fail_at=6, steps=8,
+                     resume_steps=10)
+CKPT_COPIES = 3     # keep=2 committed steps and the step being written
+REPLAY_RTOL = 1e-5  # the second replayed step's loss against its first run
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def timed_calls(mod, names) -> tuple[dict, dict, callable]:
+    """Wrap the module-level functions ``names`` of ``mod`` with host-clock
+    timers; returns ``(seconds, calls, undo)``: the first two keyed by
+    ``(name, on the main thread)``, ``undo()`` puts the originals back."""
+    import threading
+
+    spent, calls = {}, {}
+    untimed = {n: getattr(mod, n) for n in names}
+    for name in names:
+        def timed(*a, _fn=untimed[name], _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                key = (_name, threading.current_thread()
+                       is threading.main_thread())
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                calls[key] = calls.get(key, 0) + 1
+        setattr(mod, name, timed)
+    return spent, calls, lambda: [setattr(mod, n, f)
+                                  for n, f in untimed.items()]
+
+
+def train_default(device, spec: dict, workdir: pathlib.Path) -> dict:
+    """``TrainController(..., inject_failure_at=fail_at).run(steps)`` with
+    async checkpoints in a temporary directory under ``workdir``, then
+    ``launch/train.py``'s ``main`` with ``--resume``: the recovery, the
+    replayed losses and the resumed state held, checkpoint I/O timed."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.fabric.ft import FTConfig, TrainController
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(spec["arch"])
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    cuda = torch.device(device).type == "cuda"
+    res = {"state_bytes": sum(a.numel() * a.element_size() for a in
+                              tree_leaves(init_state(cfg, device="meta")))}
+    workdir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=workdir, prefix="ckpt_") as d:
+        res["disk_free_bytes"] = shutil.disk_usage(d).free
+        need = CKPT_COPIES * res["state_bytes"]
+        if res["disk_free_bytes"] < need:
+            raise RuntimeError(f"{res['disk_free_bytes']} bytes free under "
+                               f"{workdir}, the checkpoints need {need}")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(cfg, device=device)
+        _sync(device)
+        res["init_s"] = time.perf_counter() - t0
+        pipe = SyntheticPipeline(cfg, ShapeCell("cli", spec["seq"],
+                                                spec["batch"], "train"))
+        ctrl = TrainController(
+            FTConfig(ckpt_dir=d, ckpt_period=spec["ckpt_period"],
+                     keep=spec["keep"]),
+            make_train_step(cfg), state, pipe.start(),
+            inject_failure_at=spec["fail_at"])
+        del state
+        spent, calls, untime = timed_calls(
+            ckpt, ("save", "_host", "_write", "_crc32", "_read"))
+        try:
+            recover_s = split_calls(ctrl, ("_recover",), device)
+            try:
+                logs = ctrl.run(spec["steps"])
+            finally:
+                pipe.stop()
+            final = ctrl.state
+            restored = {}
+            untimed_restore = ckpt.restore
+
+            def spy(*a, **kw):
+                t1 = time.perf_counter()
+                tree, extras = untimed_restore(*a, **kw)
+                _sync(device)
+                restored.update(
+                    step=a[1], s=time.perf_counter() - t1,
+                    bit_equal=all(bit_equal(x, y) for x, y in zip(
+                        tree_leaves(tree), tree_leaves(final))))
+                return tree, extras
+
+            ckpt.restore = spy
+            try:
+                resumed = launch_train.main(
+                    ["--arch", cfg.name, "--steps", str(spec["resume_steps"]),
+                     "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+                     "--ckpt-dir", d, "--resume", "--device", str(device)]
+                    + (["--reduced"] if spec["reduced"] else []))
+            finally:
+                ckpt.restore = untimed_restore
+        finally:
+            untime()
+        if cuda:
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    steps, fail, period = spec["steps"], spec["fail_at"], spec["ckpt_period"]
+    last = fail // period * period
+    res.update(
+        losses=[m["loss"] for m in logs], steps=[m["step"] for m in logs],
+        step_ms=[m["step_time_s"] * 1e3 for m in logs],
+        restarts=ctrl.restarts, final_step=int(final.step),
+        recover_s=recover_s["_recover"], resume=restored,
+        resumed_steps=[m["step"] for m in resumed.metrics_log],
+        resumed_losses=[m["loss"] for m in resumed.metrics_log],
+        resumed_final_step=int(resumed.state.step),
+        saves=calls[("save", False)],
+        io={f"{n}_{'main' if main else 'writer'}": v
+            for (n, main), v in spent.items()})
+    res["bytes_written"] = res["saves"] * res["state_bytes"]
+    assert res["steps"] == list(range(fail)) + list(range(last, steps)), res
+    assert res["restarts"] == 1 and res["final_step"] == steps, res
+    first = dict(zip(res["steps"][:fail], res["losses"][:fail]))
+    replay = list(zip(res["steps"][fail:], res["losses"][fail:]))[:2]
+    res["replay_bitwise"] = [loss == first[s] for s, loss in replay]
+    assert res["replay_bitwise"][0], replay
+    s, loss = replay[1]
+    assert abs(loss - first[s]) <= REPLAY_RTOL * abs(first[s]), replay
+    assert all(np.isfinite(res["losses"] + res["resumed_losses"])), res
+    assert restored["step"] == steps and restored["bit_equal"], restored
+    assert res["resumed_steps"] == list(range(steps, spec["resume_steps"]))
+    assert res["resumed_final_step"] == spec["resume_steps"], res
+    return res
+
+
+def phase_train_default(device, card: str) -> dict:
+    spec = TRAIN_DEFAULT
+    t0 = time.perf_counter()
+    res = train_default(device, spec, ROOT / "build")
+    res["phase_s"] = time.perf_counter() - t0
+    io, n = res["io"], res["saves"]
+    gb = res["state_bytes"] / 1e9
+    print(f"[train default] {spec['arch']} at full width (batch "
+          f"{spec['batch']}, seq {spec['seq']}): state {res['state_bytes']} "
+          f"bytes ({gb:.2f} GB per checkpoint), built in "
+          f"{res['init_s']:.3f} s; {res['disk_free_bytes'] / 1e9:.1f} GB "
+          f"free before the phase [{card}]")
+    print(f"[train default] steps {res['steps']}: ms per step "
+          f"{[round(x, 3) for x in res['step_ms']]}; losses "
+          f"{res['losses']}; restarts {res['restarts']}, final step "
+          f"{res['final_step']}; replayed losses bitwise equal: "
+          f"{res['replay_bitwise']} [{card}]")
+    print(f"[train default] {n} saves, {res['bytes_written'] / 1e9:.2f} GB "
+          f"written: {io['save_writer'] / n:.3f} s per save in the writer "
+          f"thread = write {io['_write_writer'] / n:.3f} s + crc "
+          f"{io['_crc32_writer'] / n:.3f} s (+ the rest), after a host copy "
+          f"of {io['_host_main'] / n:.3f} s on the training thread; "
+          f"restores: recovery {res['recover_s']:.3f} s, --resume "
+          f"{res['resume']['s']:.3f} s (read {io.get('_read_main', 0):.3f} s "
+          f"and crc {io.get('_crc32_main', 0):.3f} s for both) [{card}]")
+    print(f"[train default] --resume: restored step {res['resume']['step']} "
+          f"bit-equal to the controller's final state: "
+          f"{res['resume']['bit_equal']}; steps {res['resumed_steps']} "
+          f"losses {res['resumed_losses']}; peak "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; phase {res['phase_s']:.1f} "
+          f"s [{card}]")
+    print("[train default] summary " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7j: Mamba2-2.7B served at full width and depth over the QoS fabric,
+# then two training steps at full width
+# ---------------------------------------------------------------------------
+
+# src/repro_torch/configs/mamba2_2p7b.py unchanged (64 layers, d_model 2560,
+# d_inner 5120, 80 heads of 64, 8 groups, state 128, vocab 50280, bf16
+# compute, 3126248960 parameters), served on phase 7h's traffic and fabric;
+# the cache check takes whole ssm_chunks (256).  Then make_train_step at the
+# reference CLI's batch 8 and seq 64 (its TrainState is 37.5 GB: no
+# checkpoint).
+SSM_SERVE = dict(LLAMA_SERVE, arch="mamba2-2.7b", check_prefill=256,
+                 check_decode=256)
+SSM_TRAIN = dict(batch=8, seq=64, steps=2)
+
+
+def ssm_train(device, cfg, spec: dict) -> dict:
+    """``spec["steps"]`` steps of ``make_train_step`` from a fresh state:
+    losses (finite), ms per step, peak memory."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, device=device)
+    _sync(device)
+    res = {"init_s": time.perf_counter() - t0, "losses": [], "step_ms": []}
+    pipe = SyntheticPipeline(cfg, ShapeCell("cli", spec["seq"],
+                                            spec["batch"], "train"))
+    step = make_train_step(cfg)
+    for _ in range(spec["steps"]):
+        t0 = time.perf_counter()
+        state, metrics = step(state, next(pipe))
+        _sync(device)
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["losses"].append(float(metrics["loss"]))
+    if cuda:
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(res["losses"])), res
+    assert int(state.step) == spec["steps"]
+    return res
+
+
+def phase_serve_ssm(device, card: str) -> dict:
+    from repro_torch.configs import get_config
+
+    c = SSM_SERVE
+    cfg = get_config(c["arch"])
+    t0 = time.perf_counter()
+    res = serve_fullwidth(device, cfg, c)
+    res["phase_s"] = time.perf_counter() - t0
+    # Least decode time: every weight but the embedding table read once,
+    # B embedding rows, the f32 state and the conv states read and written
+    # once -- over the HBM rate.
+    B, L, D = c["batch"], cfg.n_layers, cfg.d_model
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    GN, K1 = cfg.ssm_groups * N, cfg.ssm_dconv - 1
+    state = L * B * H * N * P * 4
+    conv = L * B * K1 * (cfg.d_inner + 2 * GN) * 2
+    res["cache_bytes"] = state + conv
+    res["decode_bytes"] = (res["param_bytes"] - res["embed_bytes"]
+                           + B * D * 2 + 2 * (state + conv))
+    # Prefill FLOPs: every non-embedding weight at every position (the LM
+    # head at the last one only), plus the SSD products per chunk (C.B over
+    # Q x Q pairs, their weights times x, the chunk states and the
+    # inter-chunk term).
+    S = c["prompt_len"]
+    Q = min(cfg.ssm_chunk, S)
+    head = D * cfg.vocab
+    dense = res["n_params"] - res["embed_bytes"] // 2 - head
+    ssd = 2 * B * S * H * (Q * N + Q * P + 2 * N * P) * L
+    res["prefill_flop"] = 2 * dense * B * S + 2 * head * B + ssd
+    serving_times(res)
+    print(f"[serve ssm] {c['arch']} (d_model {D}, {L} layers, d_inner "
+          f"{cfg.d_inner}, {H} heads of {P}, {cfg.ssm_groups} groups, state "
+          f"{N}, vocab {cfg.vocab}, {cfg.compute_dtype}): {res['n_params']} "
+          f"parameters, {res['param_bytes']} bytes on the card; engine "
+          f"built in {res['init_s']:.3f} s, peak "
+          f"{res['init_peak_bytes'] / 2**30:.2f} GiB during init [{card}]")
+    report_serving("serve ssm", res, c, cfg, card, SSM_CACHE_REL_L2)
+    free_card()
+    tr = res["train"] = ssm_train(device, cfg, SSM_TRAIN)
+    print(f"[serve ssm] training at full width (make_train_step, batch "
+          f"{SSM_TRAIN['batch']}, seq {SSM_TRAIN['seq']}): state built in "
+          f"{tr['init_s']:.3f} s, losses {tr['losses']}, ms per step "
+          f"{[round(x, 3) for x in tr['step_ms']]}, peak "
+          f"{tr['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    print("[serve ssm] summary " + json.dumps(no_nan(res)))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: ViT-Base data-parallel training over OCCL at full width
+# ---------------------------------------------------------------------------
 
 def check_average(per_rank: list, averaged: list) -> float:
     """Every rank's OCCL-averaged grads within rtol 1e-4 / atol 1e-6 of the
@@ -2170,6 +2529,7 @@ def phase_vit_profile(rt_cfg, n: int, card: str) -> dict:
     del rt
     free_card()
     return res
+
 
 
 # ---------------------------------------------------------------------------
@@ -2342,6 +2702,7 @@ def phase_profile(device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2383,7 +2744,10 @@ def main(argv=None) -> int:
     counters = (fs.fused_burst, fs.fused_primitive, cc.chunk_combine)
     paths = {}
 
-    def main_path(name, fn):
+    def main_path(name, fn, fabric=True):
+        """Drive ``fn`` with the launch counts set to 0 first; a path over
+        the OCCL fabric must launch ``fused_burst``, one without (the
+        checkpoint path) must launch no kernel."""
         for k in counters:
             k.launches = 0
         res = fn()
@@ -2391,7 +2755,10 @@ def main(argv=None) -> int:
         print(f"[path] {name}: fused_burst launches {paths[name][0]}, "
               f"fused_primitive launches {paths[name][1]}, chunk_combine "
               f"launches {paths[name][2]}")
-        assert paths[name][0] > 0, (name, paths[name])
+        if fabric:
+            assert paths[name][0] > 0, (name, paths[name])
+        else:
+            assert paths[name] == (0, 0, 0), (name, paths[name])
         return res
 
     adv = main_path("adversarial", lambda: phase_adversarial(device))
@@ -2428,6 +2795,12 @@ def main(argv=None) -> int:
                       lambda: phase_serve_fullwidth(device, card))
     assert paths["serve fullwidth"][0] >= llama["ticked"]
     free_card()
+    main_path("train default", lambda: phase_train_default(device, card),
+              fabric=False)
+    free_card()
+    ssm = main_path("serve ssm", lambda: phase_serve_ssm(device, card))
+    assert paths["serve ssm"][0] >= ssm["ticked"]
+    free_card()
     vit = main_path("vit", lambda: phase_vit(device, card))
     assert paths["vit"][0] >= sum(r["supersteps"] for r in vit["host_steps"])
     free_card()
@@ -2443,6 +2816,8 @@ def main(argv=None) -> int:
     fused_entry["note"] = ("the [N, S] counterpart of the Pallas contract; "
                            "no runtime path calls it since the scheduler's "
                            "burst is one fused_burst launch")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
+          f"main [{card}]")
     print(card)
     print(json.dumps({"kernels": list(entries)}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ PyTorch port of the sim half of ``repro.core.daemon``.  Per-rank state
 carries the leading rank axis written out, the scheduler superstep runs over
 all ranks at once, and the connector fabric is a gather along each lane's
 ring permutation.  The mesh backend (one device per rank) is not ported yet
-(ROADMAP.md, "Modules to port", item 11).
+(ROADMAP.md, "Modules to port", item 5).
 
 The loop terminates on: all work drained, the voluntary-quit threshold
 (consecutive fabric-wide no-progress supersteps, Sec. 3.1.3), or the hard

@@ -23,7 +23,7 @@ one rank (drain, rebuild for R-1, replay).  The tick surface is ported:
 ``tick_fn``, ``launch_once(tick_k=...)`` / ``drive(tick_k=...)`` and the
 in-step :meth:`OcclRuntime.device_api`, all on one superstep machine
 (:class:`~repro_torch.core.daemon.SimTicker`).  The mesh backend (ROADMAP.md,
-"Modules to port", item 11) is not ported yet.
+"Modules to port", item 5) is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,27 +1,118 @@
-"""Fault tolerance over one port runtime: detection -> diagnosis -> eviction.
+"""Fault tolerance: the checkpoint/restart training controller, and
+detection -> diagnosis -> eviction over one port runtime.
 
-PyTorch port of the ``ReliabilityController`` of ``repro.fabric.ft``.  The
-reference module's ``TrainController`` (checkpoint/restart around a train
-loop) needs the port's ``checkpoint/`` and ``data/`` packages, which are
-not ported yet (ROADMAP.md, "Modules to port", item 8); it raises
-``NotImplementedError`` here.
+PyTorch port of ``repro.fabric.ft``.  ``TrainController`` wraps the train
+loop with:
+
+* periodic async checkpoints (``checkpoint/ckpt.py``; the step never
+  blocks on disk);
+* a step watchdog (a step longer than ``step_timeout_s`` raises
+  :class:`StepTimeout`, which the loop treats as a failure);
+* crash recovery: on a step failure the controller restores the last
+  committed checkpoint (parameters, optimizer moments and the data
+  cursor) and resumes, losing at most ``ckpt_period`` steps, within
+  ``max_restarts``;
+* the failure-injection hook for tests (``inject_failure_at``).
+
+One deliberate difference: recovery first waits for a save in flight,
+so the step it restores is the last one the loop checkpointed (the
+reference reads the directory at once and restores an older step while
+that save is still being written).  The step is timed on the host clock
+and ends with a synchronize on the state's device (the reference's
+``block_until_ready``).
+
+``ReliabilityController`` is the reliability loop a fleet controller runs
+around the training step (its docstring).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 import warnings
+from typing import Callable, Optional
 
+import torch
+
+from ..checkpoint.ckpt import AsyncCheckpointer, latest_step, restore
 from ..core.errors import DeadlockTimeout, StepTimeout
 from ..core.recorder import diagnose
+from ..data.pipeline import SyntheticPipeline
 from .straggler import StragglerDetector
 
-__all__ = ["ReliabilityController", "StepTimeout", "TrainController"]
+__all__ = ["FTConfig", "ReliabilityController", "StepTimeout",
+           "TrainController"]
+
+
+@dataclasses.dataclass
+class FTConfig:
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_period: int = 20
+    keep: int = 2
+    step_timeout_s: float = 300.0
+    max_restarts: int = 3
 
 
 class TrainController:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TrainController is not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 8: model/training substrate)")
+    def __init__(self, cfg: FTConfig, step_fn: Callable, state,
+                 pipeline: SyntheticPipeline,
+                 inject_failure_at: Optional[int] = None):
+        self.cfg = cfg
+        self.step_fn = step_fn
+        self.state = state
+        self.pipeline = pipeline
+        self.ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
+        self.inject_failure_at = inject_failure_at
+        self.restarts = 0
+        self.metrics_log: list[dict] = []
+
+    def _checkpoint(self, step: int):
+        self.ckpt.save_async(step, self.state,
+                             extras={"pipeline": self.pipeline.state_dict()})
+
+    def _recover(self):
+        self.restarts += 1
+        if self.restarts > self.cfg.max_restarts:
+            raise RuntimeError("restart budget exhausted")
+        self.ckpt.wait()
+        last = latest_step(self.cfg.ckpt_dir)
+        if last is None:
+            raise RuntimeError("no checkpoint to recover from")
+        self.state, extras = restore(self.cfg.ckpt_dir, last, self.state)
+        self.pipeline.load_state_dict(extras["pipeline"])
+        return last
+
+    def run(self, n_steps: int) -> list[dict]:
+        self._checkpoint(int(self.state.step))   # step-0 baseline
+        self.ckpt.wait()
+        done = int(self.state.step)
+        while done < n_steps:
+            try:
+                if (self.inject_failure_at is not None
+                        and done == self.inject_failure_at):
+                    self.inject_failure_at = None   # fire once
+                    raise RuntimeError("injected node failure")
+                batch = next(self.pipeline)
+                t0 = time.perf_counter()
+                self.state, metrics = self.step_fn(self.state, batch)
+                if self.state.step.device.type == "cuda":
+                    torch.cuda.synchronize(self.state.step.device)
+                dt = time.perf_counter() - t0
+                if dt > self.cfg.step_timeout_s:
+                    raise StepTimeout(f"step took {dt:.1f}s")
+                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics.update(step=done, step_time_s=dt,
+                               restarts=self.restarts)
+                self.metrics_log.append(metrics)
+                done += 1
+                if done % self.cfg.ckpt_period == 0:
+                    self._checkpoint(done)
+            except (RuntimeError, StepTimeout):
+                recovered = self._recover()
+                done = recovered
+        self.ckpt.wait()
+        self._checkpoint(done)
+        self.ckpt.wait()
+        return self.metrics_log
 
 
 class ReliabilityController:

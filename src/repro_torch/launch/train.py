@@ -1,15 +1,19 @@
 """Training launcher (PyTorch port of ``repro.launch.train``).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --reduced --steps 50 --batch 8 --seq 64 [--resume] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-base \\
         --occl-sync --dp 4 --batch 128 --steps 2 [--device cpu]
 
-``--occl-sync`` trains simulated DP ranks (the sim backend: all on one
-device) with gradient buckets synchronized through the OCCL runtime (paper
-Sec. 5.3); the defaults of ``--bucket-elems`` / ``--slice-elems`` /
-``--burst-slices`` are the reference's.  The default path (the
-fault-tolerant ``TrainController`` with checkpoints) is not ported yet and
-raises ``NotImplementedError`` (ROADMAP.md, "Modules to port", item 8:
-``checkpoint/ckpt.py`` and ``fabric/ft.py::TrainController``).
+The default path runs the fault-tolerant train loop
+(``fabric/ft.py::TrainController``) over the synthetic pipeline, with an
+async checkpoint every ``--ckpt-period`` steps into ``--ckpt-dir``;
+``--resume`` first restores the latest checkpoint there (state and data
+cursor).  ``--occl-sync`` trains simulated DP ranks (the sim backend: all
+on one device) with gradient buckets synchronized through the OCCL runtime
+(paper Sec. 5.3); the defaults of ``--bucket-elems`` / ``--slice-elems`` /
+``--burst-slices`` are the reference's.  Both run on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_train_ckpt")
+    ap.add_argument("--ckpt-period", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--occl-sync", action="store_true")
@@ -41,11 +48,17 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Returns the ``TrainController`` of the default path (its ``state``,
+    ``metrics_log`` and ``restarts``), or :func:`run_occl_dp`'s result."""
     args = parse_args(argv)
+    from ..checkpoint.ckpt import latest_step, restore
     from ..configs import get_config
     from ..configs.base import ShapeCell
     from ..core.state import resolve_device
+    from ..data.pipeline import SyntheticPipeline
+    from ..fabric.ft import FTConfig, TrainController
     from ..train.state import init_state
+    from ..train.step import make_train_step
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -55,12 +68,27 @@ def main(argv=None):
     n = sum(int(np.prod(p.shape)) for p in
             tree_leaves(init_state(cfg, device="meta").params))
     print(f"arch={cfg.name} params={n:,}")
-    if not args.occl_sync:
-        raise NotImplementedError(
-            "the default training path (TrainController + checkpoints) is "
-            "not ported yet (ROADMAP.md, 'Modules to port', item 8); run "
-            "with --occl-sync")
-    return run_occl_dp(cfg, cell, args, device)
+    if args.occl_sync:
+        return run_occl_dp(cfg, cell, args, device)
+
+    pipe = SyntheticPipeline(cfg, cell).start()
+    ft = FTConfig(ckpt_dir=args.ckpt_dir, ckpt_period=args.ckpt_period)
+    ctrl = TrainController(ft, make_train_step(cfg),
+                           init_state(cfg, device=device), pipe)
+    if args.resume:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            ctrl.state, extras = restore(args.ckpt_dir, last, ctrl.state)
+            pipe.load_state_dict(extras["pipeline"])
+            print(f"resumed from step {last} "
+                  f"({time.perf_counter() - t0:.3f} s)")
+    logs = ctrl.run(args.steps)
+    pipe.stop()
+    for m in logs[-5:]:
+        print(f"step {m['step']:4d} loss {m['loss']:.4f} "
+              f"{m['step_time_s']*1e3:7.1f} ms")
+    return ctrl
 
 
 def run_occl_dp(cfg, cell, args, device=None, on_step=None) -> dict:

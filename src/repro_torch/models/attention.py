@@ -10,7 +10,7 @@ math in the reference too (no TPU kernel), so plain PyTorch ops are the
 port.  The knobs read the reference's environment variables
 (``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_KV_BLOCK``, ``REPRO_ATTN_BF16``).
 The recursive-halving causal path (``REPRO_CAUSAL_REC``) is not ported
-yet (ROADMAP.md, "Modules to port", item 8).
+yet (ROADMAP.md, "Modules to port", item 4).
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def full_or_blockwise(q, k, v, **kw) -> torch.Tensor:
         if int(os.environ.get("REPRO_CAUSAL_REC", "0")) > 0:
             raise NotImplementedError(
                 "the recursive-halving causal attention is not ported yet "
-                "(ROADMAP.md, 'Modules to port', item 8)")
+                "(ROADMAP.md, 'Modules to port', item 4)")
         return blockwise_attention(q, k, v, **kw)
     return attention(q, k, v, **kw)
 

@@ -4,7 +4,8 @@ The two packages draw parameters from different RNGs, so parity tests and
 anyone moving a checkpoint hand the reference's parameters over as a
 nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``).  The layout is the same on both sides — nested dicts, per-layer
-leaves stacked on a leading [L] axis — so a leaf converts one to one.
+leaves stacked on a leading [L] axis — so a leaf converts one to one, the
+ssm family's constants (``A_log``, ``D_skip``, ``dt_bias``) included.
 bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) keep their bits.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The model zoo's training and serving paths for the dense, moe and ViT
-families.
+"""The model zoo's training and serving paths for the dense, moe, ssm and
+ViT families.
 
 PyTorch port of ``repro.models.transformer``: one functional ``Model`` per
 architecture,
@@ -20,19 +20,25 @@ distinguished from ``"full"``).  ``loss_fn`` casts every parameter to
 ``cfg.compute_dtype`` first, as the reference does.
 
 The moe family's blocks are :mod:`repro_torch.models.moe` (each layer adds
-its load-balance loss to the trunk's aux term, weighted 0.01 in the loss).
+its load-balance loss to the trunk's aux term, weighted 0.01 in the loss);
+the ssm family's (Mamba2, attention-free) are :mod:`repro_torch.models.ssm`.
 
-Serving (dense and moe): the cache is the reference's dict, ``k`` / ``v``
+Serving: the cache is the reference's dict.  Dense and moe: ``k`` / ``v``
 stacked [L, B, Smax, KV, dh] (zero-padded to ``pad_to``) and ``pos``, an
 int32 0-d tensor.  ``decode_step`` writes each layer's new k / v into the
 cache IN PLACE at ``min(pos, Smax - 1)`` (the reference's
 ``dynamic_update_slice`` position, read on the device, never on the host)
-and so consumes the cache it is given.  The vit family has no serving path
-(``ValueError``, as the reference fails on its missing ``embed``).
+and so consumes the cache it is given.  ssm: ``state`` [L, B, H, N, P]
+float32, ``conv_x`` / ``conv_B`` / ``conv_C`` [L, B, d_conv - 1, C] (the
+trailing conv inputs) and ``pos``; ``pad_to`` is ignored, the prompt
+length must be a multiple of ``min(ssm_chunk, S)``, and ``decode_step``
+writes the new states into the cache in place too.  The vit family has no
+serving path (``ValueError``, as the reference fails on its missing
+``embed``).
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md,
-"Modules to port"): the ssm, hybrid, encdec and vlm families (item 8),
-their ``prefill`` and ``decode_step`` included.
+"Modules to port", item 4): the hybrid, encdec and vlm families, their
+``prefill`` and ``decode_step`` included.
 """
 from __future__ import annotations
 
@@ -48,11 +54,13 @@ from ..configs.base import ArchConfig
 from ..tree import tree_map
 from . import attention as A
 from . import moe as M
+from . import ssm as SSM
 from .layers import (cross_entropy, gelu_mlp, layer_norm, ninit, rms_norm,
                      rope, swiglu)
 
 VOCAB_PAD = 256   # Megatron-style: pad the vocab to a multiple of 256.
-FAMILIES = ("dense", "moe", "vit")
+FAMILIES = ("dense", "moe", "ssm", "vit")
+SSM_CACHE = ("state", "conv_x", "conv_B", "conv_C")   # [L, ...] each
 
 
 def padded_vocab(v: int) -> int:
@@ -69,10 +77,9 @@ def mask_vocab_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
                                   device=logits.device))
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item "
-        f"{item})")
+        f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item 4)")
 
 
 # ======================================================================
@@ -235,7 +242,7 @@ class Model:
         dt = getattr(torch, cfg.param_dtype)
         fam = cfg.family
         if fam not in FAMILIES:
-            raise _not_ported(f"the {fam} family", 8)
+            raise _not_ported(f"the {fam} family")
         V = padded_vocab(cfg.vocab)
         p: dict[str, Any] = {}
         if fam in ("dense", "moe"):
@@ -250,6 +257,16 @@ class Model:
             p["layers"] = _stack([{
                 "attn": init_attn(seed, f"l{i}/attn", cfg, dt, device),
                 **block(i)} for i in range(cfg.n_layers)])
+            p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                          device=device)
+            p["lm_head"] = ninit(seed, "lm_head", (cfg.d_model, V), 0.02,
+                                 dt, device)
+        elif fam == "ssm":
+            p["embed"] = ninit(seed, "embed", (V, cfg.d_model), 0.02, dt,
+                               device)
+            p["layers"] = _stack([SSM.init_ssm_block(seed, f"l{i}", cfg, dt,
+                                                     device)
+                                  for i in range(cfg.n_layers)])
             p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
                                           device=device)
             p["lm_head"] = ninit(seed, "lm_head", (cfg.d_model, V), 0.02,
@@ -284,8 +301,11 @@ class Model:
                 h = attn_train(cfg, lp["attn"], h)
                 y, a = M.moe_forward(cfg, lp["moe"], h)
                 return h + y, a
+        elif cfg.family == "ssm":
+            def body(h, lp):
+                return SSM.ssd_forward(cfg, lp, h)[0], None
         else:
-            raise _not_ported(f"the {cfg.family} trunk", 8)
+            raise _not_ported(f"the {cfg.family} trunk")
 
         body = _remat(body, cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -325,8 +345,8 @@ class Model:
             return -torch.mean(
                 torch.sum(F.log_softmax(logits, dim=-1) * onehot, dim=-1))
 
-        if fam not in ("dense", "moe"):
-            raise _not_ported(f"the {fam} family", 8)
+        if fam not in ("dense", "moe", "ssm"):
+            raise _not_ported(f"the {fam} family")
         x = params["embed"][batch["tokens"].long()]
         x, aux = self._trunk_train(params, x)
         x = rms_norm(x, params["final_norm"])
@@ -341,8 +361,8 @@ class Model:
         fam = self.cfg.family
         if fam == "vit":
             raise ValueError(fam)
-        if fam not in ("dense", "moe"):
-            raise _not_ported(f"{what} of the {fam} family", 8)
+        if fam not in ("dense", "moe", "ssm"):
+            raise _not_ported(f"{what} of the {fam} family")
 
     def _block_ffn(self, lp, h):
         if self.cfg.family == "moe":
@@ -367,6 +387,16 @@ class Model:
         tokens = batch["tokens"]
         x = params["embed"][tokens.long()]
         B, S = tokens.shape
+        pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+        if cfg.family == "ssm":
+            outs = []
+            for lp in _layers(params["layers"], cfg.n_layers):
+                x, (st, cv) = SSM.ssd_forward(cfg, lp, x)
+                outs.append((st, *cv))
+            cache = {k: torch.stack(v) for k, v in zip(SSM_CACHE,
+                                                       zip(*outs))}
+            return (self._last_logits(params, x[:, -1:]),
+                    dict(cache, pos=pos))
         Smax = max(S, pad_to or 0)
         shape = (cfg.n_layers, B, Smax, cfg.n_kv_heads, cfg.d_head)
         kc = torch.zeros(shape, dtype=cdt, device=x.device)
@@ -376,20 +406,29 @@ class Model:
             kc[i, :, :S] = k
             vc[i, :, :S] = v
             x = self._block_ffn(lp, x)
-        cache = {"k": kc, "v": vc,
-                 "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+        cache = {"k": kc, "v": vc, "pos": pos}
         return self._last_logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens):
         """tokens: [B] int32 -> (logits [B, V], cache with ``pos + 1``).
-        The input cache is CONSUMED: its ``k`` / ``v`` are written in place
-        and returned in the new cache."""
+        The input cache is CONSUMED: its ``k`` / ``v`` (ssm: ``state`` and
+        the conv states) are written in place and returned in the new
+        cache."""
         self._serving_family("decode_step")
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         params = tree_map(lambda a: a.to(cdt), params)
         pos = cache["pos"]
         x = params["embed"][tokens.long()[:, None]]
+        if cfg.family == "ssm":
+            for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+                old = [cache[k][i] for k in SSM_CACHE]
+                x, (st, cv) = SSM.ssd_decode_step(cfg, lp, x,
+                                                  (old[0], tuple(old[1:])))
+                for dst, src in zip(old, (st, *cv)):
+                    dst.copy_(src)
+            return (self._last_logits(params, x[:, 0]),
+                    dict(cache, pos=pos + 1))
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             x = attn_decode(cfg, lp["attn"], x, cache["k"][i],
                             cache["v"][i], pos)

@@ -3,7 +3,7 @@
 PyTorch port of ``repro.optim.adamw`` over
 nested-dict trees of tensors, float32 arithmetic as in the reference.
 ZeRO-1 moment partitioning (``zero1_pspecs``) waits for the sharding
-port (ROADMAP.md, "Modules to port", item 12).
+port (ROADMAP.md, "Modules to port", item 6).
 """
 from __future__ import annotations
 
@@ -48,8 +48,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, m, v, step):
-    """One AdamW step; returns (params, m, v, grad norm)."""
+def adamw_update(cfg: AdamWConfig, params, grads, m, v, step, *,
+                 inplace: bool = False):
+    """One AdamW step; returns (params, m, v, grad norm).  With
+    ``inplace`` the new values are written into ``params``, ``m`` and
+    ``v`` themselves, one leaf at a time (the same values; a state is
+    then never held twice), and those trees are returned."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
@@ -66,8 +70,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, m, v, step):
         pn = pf - lr * (u + cfg.weight_decay * pf)
         return pn.to(p.dtype), mn.to(mi.dtype), vn.to(vi.dtype)
 
-    out = [upd(*xs) for xs in zip(tree_leaves(params), tree_leaves(grads),
-                                  tree_leaves(m), tree_leaves(v))]
+    leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(m),
+                 tree_leaves(v))
+    if inplace:
+        for p, g, mi, vi in leaves:
+            for old, new in zip((p, mi, vi), upd(p, g, mi, vi)):
+                old.copy_(new)
+        return params, m, v, gnorm
+    out = [upd(*xs) for xs in leaves]
     return (tree_unflatten(params, [o[0] for o in out]),
             tree_unflatten(m, [o[1] for o in out]),
             tree_unflatten(v, [o[2] for o in out]), gnorm)

@@ -2,7 +2,7 @@
 
 PyTorch port of ``repro.train.state`` (``TrainState``, ``init_state``).
 The partition specs and shardings wait for the sharding port (ROADMAP.md,
-"Modules to port", item 12).
+"Modules to port", item 6).
 """
 from __future__ import annotations
 

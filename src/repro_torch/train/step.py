@@ -1,9 +1,16 @@
 """Training steps: the functions that make each step.
 
 PyTorch port of ``repro.train.step`` (train, grads, apply and the
-overlapped grads step; prefill and decode wait for the serving port,
-ROADMAP.md "Modules to port", item 10).  A step takes a batch as a dict of
-numpy arrays or tensors and moves it to the parameters' device.
+overlapped grads step; the prefill and decode step builders wait for
+``launch/dryrun.py``, their only caller, ROADMAP.md "Modules to port",
+item 6).  A step takes a batch as a dict of numpy arrays or tensors and
+moves it to the parameters' device.
+
+The train step CONSUMES its input state: AdamW writes the new parameters
+and moments into the input's tensors, one leaf at a time (the values are
+the reference's), so a full-width state is never held twice.  This is
+what donating the state to the reference's jitted step would do; callers
+that must keep a state copy it first, as ``AsyncCheckpointer`` does.
 
 Overlapped grad sync (the tick contract inside a training step)
 ----------------------------------------------------------------
@@ -73,7 +80,8 @@ def make_train_step(cfg: ArchConfig,
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, grads = _grads(model, state.params, batch)
         new_p, new_m, new_v, gnorm = adamw_update(
-            opt, state.params, grads, state.m, state.v, state.step)
+            opt, state.params, grads, state.m, state.v, state.step,
+            inplace=True)
         metrics = {"loss": loss, "grad_norm": gnorm}
         return TrainState(new_p, new_m, new_v, state.step + 1), metrics
 

@@ -18,8 +18,8 @@ Parameters are carried across from the reference's init
   combines at the reference's own ``rtol=2e-4, atol=2e-5``.
 
 Leaf order and shapes equal ``jax.tree_util.tree_leaves`` — at full size
-for ViT-Base too (``jax.eval_shape`` against the meta device) — since they
-decide the gradient buckets.
+for ViT-Base and Mamba2-2.7B too (``jax.eval_shape`` against the meta
+device) — since they decide the gradient buckets.
 """
 import dataclasses
 
@@ -57,7 +57,8 @@ from repro_torch.train.step import make_grads_step, make_train_step
 from repro_torch.tree import tree_leaves
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-ARCHS = ("vit-base", "qwen3-0.6b", "deepseek-moe-16b")
+ARCHS = ("vit-base", "qwen3-0.6b", "deepseek-moe-16b", "mamba2-2.7b")
+FULL_PARAMS = {"vit-base": 86_535_936, "mamba2-2.7b": 3_126_248_960}
 
 
 def configs(arch, compute_dtype=None):
@@ -235,7 +236,9 @@ def test_moe_combine_scatter_matches_gather(monkeypatch):
 @pytest.mark.parametrize("arch,reduced", [("vit-base", True),
                                           ("qwen3-0.6b", True),
                                           ("deepseek-moe-16b", True),
-                                          ("vit-base", False)])
+                                          ("mamba2-2.7b", True),
+                                          ("vit-base", False),
+                                          ("mamba2-2.7b", False)])
 def test_leaf_order_and_shapes_equal_reference(arch, reduced):
     jc, tc = jget(arch), tget(arch)
     if reduced:
@@ -249,8 +252,8 @@ def test_leaf_order_and_shapes_equal_reference(arch, reduced):
     jpaths = ["/".join(str(k.key) for k in p) for p, _ in
               jax.tree_util.tree_flatten_with_path(jp)[0]]
     assert jpaths == tree_paths(tp)
-    if arch == "vit-base" and not reduced:
-        assert sum(int(np.prod(b.shape)) for b in tl) == 86_535_936
+    if not reduced:
+        assert sum(int(np.prod(b.shape)) for b in tl) == FULL_PARAMS[arch]
 
 
 def grads_both(arch, compute_dtype, batch_size=4):
@@ -300,9 +303,9 @@ def test_init_is_seeded_and_order_free():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(tget("mamba2-2.7b").reduced()).init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_model(tget("zamba2-1.2b").reduced()).init(0, "cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
         build_model(tget("zamba2-1.2b").reduced()).prefill({}, {})
 
 

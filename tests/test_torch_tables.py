@@ -176,10 +176,12 @@ def test_composite_and_unported_paths_raise_not_implemented():
     """Composite registration is ported: two_level lowers to a chain, auto
     resolves, a plan the zoo lacks raises the reference's ValueError.  The
     tick surface is ported (``tick_fn`` and ``device_api`` return their
-    objects); the paths still to port raise NotImplementedError naming
-    their ROADMAP.md item."""
+    objects); the paths still to port (the hybrid model family here;
+    ``TrainController`` is ported) raise NotImplementedError naming their
+    ROADMAP.md item."""
+    from repro_torch.configs import get_config
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
-    from repro_torch.fabric.ft import TrainController
+    from repro_torch.models import build_model
 
     rt = OcclRuntime(OcclConfig(n_ranks=4, max_colls=8, max_comms=3,
                                 slice_elems=4, conn_depth=3,
@@ -194,4 +196,4 @@ def test_composite_and_unported_paths_raise_not_implemented():
     assert auto not in chains                       # flat ring
     assert callable(rt.tick_fn()) and not rt.device_api().stale
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainController()
+        build_model(get_config("zamba2-1.2b").reduced()).init(0, "cpu")

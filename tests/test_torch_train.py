@@ -231,7 +231,7 @@ def test_chip_smoke_vit_cell_matches_the_sync_it_builds():
         > 2 ** 31
 
 
-def test_launch_train_occl_sync_on_cpu(capsys):
+def test_launch_train_occl_sync_on_cpu(capsys, tmp_path):
     out = launch.main(["--arch", "vit-base", "--reduced", "--occl-sync",
                        "--dp", "2", "--batch", "4", "--steps", "2",
                        "--device", "cpu"])
@@ -244,8 +244,13 @@ def test_launch_train_occl_sync_on_cpu(capsys):
                     tree_leaves(out["states"][1].params)):
         assert torch.equal(a, b)
     assert "occl grad-sync: supersteps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="TrainController"):
-        launch.main(["--arch", "vit-base", "--reduced", "--device", "cpu"])
+    # Without --occl-sync: the default path (TrainController, checkpoints).
+    ctrl = launch.main(["--arch", "vit-base", "--reduced", "--device", "cpu",
+                        "--batch", "4", "--steps", "2",
+                        "--ckpt-dir", str(tmp_path)])
+    assert [m["step"] for m in ctrl.metrics_log] == [0, 1]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_0",
+                                                          "step_2"]
 
 
 def test_grad_sync_evict_keeps_averaging():
