@@ -82,9 +82,10 @@ Phases (each raises on failure; the script then exits non-zero):
       float64 recomputation from its routing, every exchange completed
       once per rank; supersteps, tick calls, preempts, wall, launches and
       peak memory;
-   f. ViT-Base at full width and depth (86.5 M parameters) over 4
-      simulated DP ranks, global batch 128, DDP-sized buckets (6553600
-      elements), slice 1024, burst 8: one host-driven step of
+   f. ViT-Base at full width and 4 of its 12 layers (29.9 M parameters;
+      the depth cut makes room for k-m) over 4 simulated DP ranks,
+      global batch 128, DDP-sized buckets (6553600 elements), slice 1024,
+      burst 8: one host-driven step of
       ``launch/train.py::run_occl_dp``, then one overlapped grads step at 8
       ticks per boundary and one at 0; each step's OCCL-averaged grads held
       to the float64 average of the per-rank grads (rtol 1e-4, atol 1e-6)
@@ -126,6 +127,22 @@ Phases (each raises on failure; the script then exits non-zero):
       bf16 and float32, within ``SSM_CACHE_REL_L2``); then two
       ``make_train_step`` steps at full width (finite losses, peak
       memory);
+   k. (runs after j, before f; the card emptied between phases)
+      Zamba2-1.2B at full width and depth (1.19 G parameters: 38 Mamba2
+      layers and one shared attention + SwiGLU block applied 6 times)
+      served as in j, its cache check as j's with the shared block's
+      ``shared_k`` / ``shared_v`` compared too (``HYBRID_CACHE_REL_L2``),
+      then two ``make_train_step`` steps as in j;
+   l. PaliGemma-3B at full width and depth (3.04 G parameters, 256 image
+      tokens, prefix-LM attention, GeGLU) served as in h with max_len
+      256 + 1024 + 56, so the cache holds image, prompt and new tokens;
+      its cache check as h's on seeded random patches (the engine sends
+      zero patches, which leave the image positions inert);
+   m. SeamlessM4T-large-v2 at full width and depth (2.03 G parameters: a
+      24-layer bidirectional encoder over 1024 frames, a 24-layer decoder
+      with cross-attention) served as in h, its cache check as l's on
+      seeded random frames; the device time of the cross K / V each
+      decode step recomputes from the encoder's output;
 8. one profiled launch of 32 supersteps each at the flat and the composite
    real-size configs and at the ViT cell's runtime shape (R=4): host wall
    time against device kernel time per superstep, the device's idle share,
@@ -200,13 +217,17 @@ A2A_MIX_STEPS = 284
 EVICT_STEPS = 520
 RECORD_ITERS = 3
 # The training path: ViT-Base (src/repro_torch/configs/vit_base.py) at full
-# width and depth, 4 simulated DP ranks, global batch 128, PyTorch DDP's
-# default bucket (bucket_cap_mb=25 in float32), the real-size cells' slice
-# and burst.  Its runtime (OcclGradSync's own formula): C=9 buckets, K=24,
-# a heap of 692308224 elements per rank.
-VIT = dict(arch="vit-base", dp=4, batch=128, bucket_elems=6_553_600,
-           slice_elems=1024, burst_slices=8)
-VIT_RUNTIME = dict(R=4, C=9, K=24, heap_elems=692_308_224)
+# width and 4 of its 12 layers (29863680 parameters), 4 simulated DP ranks,
+# global batch 128, PyTorch DDP's default bucket (bucket_cap_mb=25 in
+# float32), the real-size cells' slice and burst.  Its runtime
+# (OcclGradSync's own formula): C=8 (5 buckets), K=24, a heap of 238915840
+# elements per rank.  At full depth (9 buckets, a heap of 692308224) the
+# cell took 325 s of the script's time limit; phase 2 still holds the
+# kernel on that heap (VIT_FULL_RUNTIME).
+VIT = dict(arch="vit-base", n_layers=4, dp=4, batch=128,
+           bucket_elems=6_553_600, slice_elems=1024, burst_slices=8)
+VIT_RUNTIME = dict(R=4, C=8, K=24, heap_elems=238_915_840)
+VIT_FULL_RUNTIME = dict(R=4, C=9, K=24, heap_elems=692_308_224)
 VIT_HOST_STEPS = 1
 VIT_OVERLAP_TICKS = 8
 VIT_DRAIN_ITERS = 1 << 15     # drain ticks of 16 supersteps (about 7000 run)
@@ -461,8 +482,9 @@ BURST_SHAPES = (
     ("moe fullwidth", MOE_FULL_RUNTIME["R"], 1, 1,
      MOE_FULL_RUNTIME["slice_elems"], MOE_FULL_RUNTIME["C"],
      MOE_FULL_RUNTIME["K"], MOE_FULL_RUNTIME["heap_elems"]),
-    ("vit", VIT_RUNTIME["R"], 1, VIT["burst_slices"], VIT["slice_elems"],
-     VIT_RUNTIME["C"], VIT_RUNTIME["K"], VIT_RUNTIME["heap_elems"]))
+    ("vit", VIT_FULL_RUNTIME["R"], 1, VIT["burst_slices"], VIT["slice_elems"],
+     VIT_FULL_RUNTIME["C"], VIT_FULL_RUNTIME["K"],
+     VIT_FULL_RUNTIME["heap_elems"]))
 # Shapes whose whole real-size heap (flat offsets past 2^31) is also held.
 FULL_HEAP_SHAPES = ("moe fullwidth", "vit")
 FULL_HEAP_CHECKS = 3           # descriptor sets held on each such heap
@@ -1705,6 +1727,9 @@ SSM_CACHE = ("state", "conv_x", "conv_B", "conv_C")
 SSM_CACHE_REL_L2 = {
     "float32": {"rel_l2": 1e-4, **dict.fromkeys(SSM_CACHE, 1e-4)},
     "bfloat16": {"rel_l2": 0.15, **dict.fromkeys(SSM_CACHE, 0.15)}}
+# The hybrid's cache adds the shared block's K / V (one per application).
+CACHE_LEAVES = SSM_CACHE + ("shared_k", "shared_v")
+LLAMA_BOUNDS = {dt: {"rel_l2": b} for dt, b in CACHE_CHECK_REL_L2.items()}
 
 
 def batched_requests(n: int, vocab: int, max_new: int, rng) -> list:
@@ -1840,20 +1865,25 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def cache_check(model, params, tokens, pad_to, n_decode: int = 1) -> dict:
+def cache_check(model, params, tokens, pad_to, n_decode: int = 1,
+                extra: dict | None = None) -> dict:
     """``prefill`` of ``tokens`` but the last ``n_decode`` (cache padded to
     ``pad_to``), then one ``decode_step`` for each of those, against a
     ``prefill`` over all of ``tokens``: relative L2 and max abs error of the
-    last logits, the share of rows whose argmax agree, and for an ssm
-    cache the relative L2 of its final ``state`` and conv states."""
+    last logits, the share of rows whose argmax agree, and for an ssm or
+    hybrid cache the relative L2 of each leaf of ``CACHE_LEAVES`` (the
+    positions the longer prefill holds).  ``extra``: the batch's other
+    inputs (``patches``, ``frames``), given to both prefills."""
     import torch
 
+    extra = extra or {}
     S = tokens.shape[1] - n_decode
     V = model.cfg.vocab
-    _, cache = model.prefill(params, {"tokens": tokens[:, :S]}, pad_to=pad_to)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :S], **extra},
+                             pad_to=pad_to)
     for i in range(S, tokens.shape[1]):
         got, cache = model.decode_step(params, cache, tokens[:, i])
-    want, full = model.prefill(params, {"tokens": tokens})
+    want, full = model.prefill(params, {"tokens": tokens, **extra})
     got, want = got[:, :V].double(), want[:, 0, :V].double()
     assert bool(torch.isfinite(got).all() and torch.isfinite(want).all())
     res = {"rel_l2": rel_l2(got, want),
@@ -1861,10 +1891,26 @@ def cache_check(model, params, tokens, pad_to, n_decode: int = 1) -> dict:
            "scale": float(want.abs().max()),
            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
                                  .double().mean())}
-    for k in SSM_CACHE:
+    for k in CACHE_LEAVES:
         if k in cache:
-            res[k] = rel_l2(cache[k], full[k])
+            held = tuple(slice(0, n) for n in full[k].shape)
+            res[k] = rel_l2(cache[k][held], full[k])
     return res
+
+
+def stub_inputs(cfg, batch: int, g, device) -> dict:
+    """Seeded standard-normal ``patches`` (vlm) or ``frames`` (encdec) for
+    a cache check, in the compute dtype: the engine's zero stand-ins leave
+    the image positions inert and the encoder's output 0."""
+    import torch
+
+    key, n = {"vlm": ("patches", cfg.vis_tokens),
+              "encdec": ("frames", cfg.enc_frames)}.get(cfg.family,
+                                                        (None, 0))
+    if key is None:
+        return {}
+    x = torch.randn((batch, n, cfg.d_model), generator=g)
+    return {key: x.to(device=device, dtype=getattr(torch, cfg.compute_dtype))}
 
 
 def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
@@ -1890,6 +1936,8 @@ def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
     _sync(device)
     leaves = tree_leaves(eng.params)
     res = {"init_s": time.perf_counter() - t0,
+           "elems": {k: sum(a.numel() for a in tree_leaves(v))
+                     for k, v in eng.params.items()},
            "n_params": sum(a.numel() for a in leaves),
            "param_bytes": sum(a.numel() * a.element_size() for a in leaves),
            "embed_bytes": eng.params["embed"].numel()
@@ -1947,13 +1995,36 @@ def serve_fullwidth(device, cfg, spec: dict = LLAMA_SERVE,
     n_pre, n_dec = check_lengths(spec)
     toks = torch.randint(0, cfg.vocab, (spec["batch"], n_pre + n_dec),
                          generator=g, dtype=torch.int32).to(device)
+    extra = stub_inputs(cfg, spec["batch"], g, device)
     res["cache_check"] = cache_check(eng.model, eng.params, toks,
-                                     spec["max_len"], n_dec)
+                                     spec["max_len"], n_dec, extra)
     p32 = tree_map(lambda a: a.float(), eng.params)
     m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
     res["cache_check_f32"] = cache_check(m32, p32, toks, spec["max_len"],
-                                         n_dec)
+                                         n_dec, extra)
+    if cuda and cfg.family == "encdec":
+        res["cross_kv_ms"] = cross_kv_ms(eng, spec["batch"])
     return res
+
+
+def cross_kv_ms(eng, batch: int) -> float:
+    """Device ms of the cross-attention K / V an encdec decode step
+    recomputes from ``enc_out`` (every decoder layer's ``mem @ wk`` and
+    ``mem @ wv`` on a [batch, enc_frames, D] memory), replayed from a CUDA
+    graph: the work a cross-K / V cache would save."""
+    import torch
+
+    cfg, cross = eng.cfg, eng.params["layers"]["cross"]
+    mem = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                      device=eng.device).to(cross["wk"].dtype)
+    ws = [(cross["wk"][i], cross["wv"][i]) for i in range(cfg.n_layers)]
+
+    def fn():
+        for wk, wv in ws:
+            mem @ wk
+            mem @ wv
+
+    return graph_ms(fn)
 
 
 def check_lengths(spec: dict) -> tuple[int, int]:
@@ -2023,7 +2094,8 @@ def report_serving(tag: str, res: dict, spec: dict, cfg, card: str,
               f"prompts): logits relative L2 {cc['rel_l2']:.3g}, max abs "
               f"{cc['max_abs']:.3g} of logits up to {cc['scale']:.3g}, "
               f"argmax agrees in {cc['argmax_agree']:.3f} of the rows"
-              + "".join(f", {k} {cc[k]:.3g}" for k in SSM_CACHE if k in cc)
+              + "".join(f", {k} {cc[k]:.3g}" for k in CACHE_LEAVES
+                        if k in cc)
               + f" (bounds {bounds[dt]}) [{card}]")
         for k, bound in bounds[dt].items():
             assert cc[k] <= bound, (dt, k, cc)
@@ -2033,40 +2105,122 @@ def report_serving(tag: str, res: dict, spec: dict, cfg, card: str,
     assert got == LLAMA_COUNTS, got
 
 
-def phase_serve_fullwidth(device, card: str) -> dict:
+def serving_costs(cfg, spec: dict, res: dict) -> None:
+    """The decode bound's bytes and the prefill's FLOPs of
+    :func:`serve_fullwidth`'s model, into ``res``.
+
+    Decode: every weight the step reads once (all but the embedding table,
+    the vlm's ``vis_proj`` and the encoder), B embedding rows and every
+    cache byte it reads or writes: the padded KV caches read (one slot
+    written), the ssm states and conv states read and written, the encdec
+    memory read and the cross-attention K / V it recomputes written and
+    read again.  Prefill: every weight at every position it applies to
+    (the LM head at the last position only, the hybrid's shared block at
+    each of its applications, the encoder and the cross-attention's K / V
+    projections at every frame, the vlm's image positions), plus QK^T and
+    PV over every pair (the plain attention computes the masked half too)
+    and the SSD products per chunk (C.B over Q x Q pairs, their weights
+    times x, the chunk states and the inter-chunk term)."""
+    fam = cfg.family
+    B, L, D, S = spec["batch"], cfg.n_layers, cfg.d_model, spec["prompt_len"]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    n = res["elems"]
+    kv = lambda layers, length: 2 * layers * B * length * KV * dh * 2
+    attn = lambda layers, sq, skv: 4 * B * H * sq * skv * dh * layers
+    head = D * cfg.vocab
+    per_pos = res["n_params"] - n["embed"] - head
+    read = res["param_bytes"] - res["embed_bytes"]
+    wbytes = res["embed_bytes"] // n["embed"]
+    flop = 2 * head * B
+    P = S + cfg.vis_tokens if fam == "vlm" else S
+    if fam in ("ssm", "hybrid"):
+        Hs, Ps, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        GN, K1 = cfg.ssm_groups * N, cfg.ssm_dconv - 1
+        cache = (L * B * Hs * N * Ps * 4
+                 + L * B * K1 * (cfg.d_inner + 2 * GN) * 2)
+        moved = 2 * cache
+        Q = min(cfg.ssm_chunk, S)
+        flop += 2 * B * S * Hs * (Q * N + Q * Ps + 2 * N * Ps) * L
+    else:
+        cache = moved = kv(L, spec["max_len"])
+        flop += attn(L, P, P)
+    if fam == "hybrid":
+        n_inv = L // cfg.shared_attn_period
+        per_pos += (n_inv - 1) * n["shared"]
+        cache += kv(n_inv, spec["max_len"])
+        moved += kv(n_inv, spec["max_len"])
+        flop += attn(n_inv, S, S)
+    elif fam == "vlm":
+        per_pos -= n["vis_proj"]
+        read -= n["vis_proj"] * wbytes
+        flop += 2 * n["vis_proj"] * B * cfg.vis_tokens
+    elif fam == "encdec":
+        F = cfg.enc_frames
+        enc = n["enc_layers"] + n["enc_norm"]
+        cross_kv = L * 2 * D * KV * dh
+        per_pos -= enc + cross_kv
+        read -= enc * wbytes
+        flop += (2 * enc * B * F + attn(cfg.enc_layers, F, F)
+                 + 2 * cross_kv * B * F + attn(L, S, F))
+        cache += B * F * D * 2
+        moved += B * F * D * 2 + 2 * kv(L, F)
+    res["cache_bytes"] = cache
+    res["decode_bytes"] = read + B * D * 2 + moved
+    res["prefill_flop"] = flop + 2 * per_pos * B * P
+
+
+def describe(cfg) -> str:
+    """A serving phase's model line: the family's widths."""
+    attn = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.d_head}, "
+            f"d_ff {cfg.d_ff}")
+    ssm = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+           f"{cfg.ssm_headdim}, {cfg.ssm_groups} groups, state "
+           f"{cfg.ssm_state}")
+    body = {"dense": attn, "ssm": ssm,
+            "hybrid": f"{ssm}; one shared attention + SwiGLU block ({attn})"
+                      f" after every {cfg.shared_attn_period}th layer",
+            "vlm": f"{attn} GeGLU, {cfg.vis_tokens} image tokens, prefix-LM",
+            "encdec": f"a {cfg.enc_layers}-layer bidirectional encoder over "
+                      f"{cfg.enc_frames} frames, {attn}, cross-attention"}
+    return (f"d_model {cfg.d_model}, {cfg.n_layers} layers, "
+            f"{body[cfg.family]}, vocab {cfg.vocab}, {cfg.compute_dtype}")
+
+
+def phase_serve_model(device, card: str, tag: str, spec: dict, bounds: dict,
+                      train: dict | None = None) -> dict:
+    """A serving phase (7h, 7j, 7k-7m): :func:`serve_fullwidth` on the
+    config ``spec["arch"]`` names, unchanged; its costs, times and report
+    (cache checks held to ``bounds``, counts to ``LLAMA_COUNTS``); then
+    ``train``'s ``make_train_step`` steps at full width, if given."""
     from repro_torch.configs import get_config
 
-    c = LLAMA_SERVE
-    cfg = get_config(c["arch"])
+    cfg = get_config(spec["arch"])
     t0 = time.perf_counter()
-    res = serve_fullwidth(device, cfg)
+    res = serve_fullwidth(device, cfg, spec)
     res["phase_s"] = time.perf_counter() - t0
-    # Least decode time: every weight but the embedding table read once,
-    # B embedding rows, the whole padded KV cache read (and one slot
-    # written) -- over the HBM rate.
-    B, L, D = c["batch"], cfg.n_layers, cfg.d_model
-    kv = 2 * L * B * c["max_len"] * cfg.n_kv_heads * cfg.d_head * 2
-    res["cache_bytes"] = kv
-    res["decode_bytes"] = (res["param_bytes"] - res["embed_bytes"]
-                           + B * D * 2 + kv)
-    # Prefill FLOPs: every non-embedding weight at every position (the LM
-    # head at the last one only), plus QK^T and PV over all S x S pairs
-    # (the plain attention computes the masked half too).
-    S = c["prompt_len"]
-    head = D * cfg.vocab
-    dense = res["n_params"] - res["embed_bytes"] // 2 - head
-    attn = 2 * 2 * B * cfg.n_heads * S * S * cfg.d_head * L
-    res["prefill_flop"] = 2 * dense * B * S + 2 * head * B + attn
+    serving_costs(cfg, spec, res)
     serving_times(res)
-    print(f"[serve fullwidth] {c['arch']} (d_model {D}, {L} layers, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}, {cfg.compute_dtype}): {res['n_params']} "
+    print(f"[{tag}] {spec['arch']} ({describe(cfg)}): {res['n_params']} "
           f"parameters, {res['param_bytes']} bytes on the card; engine "
           f"built in {res['init_s']:.3f} s, peak "
           f"{res['init_peak_bytes'] / 2**30:.2f} GiB during init [{card}]")
-    report_serving("serve fullwidth", res, c, cfg, card, {
-        dt: {"rel_l2": b} for dt, b in CACHE_CHECK_REL_L2.items()})
-    print("[serve fullwidth] summary " + json.dumps(no_nan(res)))
+    report_serving(tag, res, spec, cfg, card, bounds)
+    if "cross_kv_ms" in res:
+        print(f"[{tag}] the cross K / V a decode step recomputes "
+              f"({2 * cfg.n_layers} projections of [{spec['batch']} x "
+              f"{cfg.enc_frames}, {cfg.d_model}] @ [{cfg.d_model}, "
+              f"{cfg.n_kv_heads * cfg.d_head}]): {res['cross_kv_ms']:.3f} ms "
+              f"of device time, graph-replayed, of {res['decode_ms']:.3f} ms "
+              f"per decode step [{card}]")
+    if train is not None:
+        free_card()
+        tr = res["train"] = train_steps(device, cfg, train)
+        print(f"[{tag}] training at full width (make_train_step, batch "
+              f"{train['batch']}, seq {train['seq']}): state built in "
+              f"{tr['init_s']:.3f} s, losses {tr['losses']}, ms per step "
+              f"{[round(x, 3) for x in tr['step_ms']]}, peak "
+              f"{tr['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    print(f"[{tag}] summary " + json.dumps(no_nan(res)))
     return res
 
 
@@ -2276,9 +2430,34 @@ def phase_train_default(device, card: str) -> dict:
 SSM_SERVE = dict(LLAMA_SERVE, arch="mamba2-2.7b", check_prefill=256,
                  check_decode=256)
 SSM_TRAIN = dict(batch=8, seq=64, steps=2)
+# Phases 7k-7m: the hybrid, vlm and encdec families, each config unchanged,
+# served on phase 7h's traffic and fabric.  7k: zamba2-1.2b (38 Mamba2
+# layers, d_model 2048, d_inner 4096, 64 heads of 64, 2 groups, state 64,
+# chunk 256, and one shared attention + SwiGLU block (32 heads of 64, d_ff
+# 8192) applied after every 6th layer, 6 times; 1188848256 parameters),
+# its cache check and training steps as 7j's.  7l: paligemma-3b (18 layers,
+# d_model 2048, 8 heads / 1 KV of 256, GeGLU d_ff 16384, vocab 257216, 256
+# image tokens; 3039897600 parameters) with max_len 256 + 1024 + 56, so
+# the cache holds the image, the longest prompt and its new tokens.  7m:
+# seamless-m4t-large-v2 (a 24-layer encoder over 1024 frames, a 24-layer
+# decoder with cross-attention, d_model 1024, 16 heads of 64, d_ff 8192,
+# vocab 256206; 2034886656 parameters).
+HYBRID_SERVE = dict(SSM_SERVE, arch="zamba2-1.2b")
+VLM_SERVE = dict(LLAMA_SERVE, arch="paligemma-3b", max_len=256 + 1024 + 56)
+ENCDEC_SERVE = dict(LLAMA_SERVE, arch="seamless-m4t-large-v2")
+# 7k's cache bounds, set before the first card run from CPU runs of the
+# same check at full depth (38 layers, 6 shared applications) and narrower
+# widths: see PERF.md.
+HYBRID_CACHE_REL_L2 = {
+    "float32": {"rel_l2": 1e-4, **dict.fromkeys(CACHE_LEAVES, 1e-4)},
+    "bfloat16": {"rel_l2": 0.15, **dict.fromkeys(CACHE_LEAVES, 0.15)}}
+SERVE_FAMILIES = (("serve hybrid", HYBRID_SERVE, HYBRID_CACHE_REL_L2,
+                   SSM_TRAIN),
+                  ("serve vlm", VLM_SERVE, LLAMA_BOUNDS, None),
+                  ("serve encdec", ENCDEC_SERVE, LLAMA_BOUNDS, None))
 
 
-def ssm_train(device, cfg, spec: dict) -> dict:
+def train_steps(device, cfg, spec: dict) -> dict:
     """``spec["steps"]`` steps of ``make_train_step`` from a fresh state:
     losses (finite), ms per step, peak memory."""
     import torch
@@ -2307,54 +2486,6 @@ def ssm_train(device, cfg, spec: dict) -> dict:
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
     assert all(np.isfinite(res["losses"])), res
     assert int(state.step) == spec["steps"]
-    return res
-
-
-def phase_serve_ssm(device, card: str) -> dict:
-    from repro_torch.configs import get_config
-
-    c = SSM_SERVE
-    cfg = get_config(c["arch"])
-    t0 = time.perf_counter()
-    res = serve_fullwidth(device, cfg, c)
-    res["phase_s"] = time.perf_counter() - t0
-    # Least decode time: every weight but the embedding table read once,
-    # B embedding rows, the f32 state and the conv states read and written
-    # once -- over the HBM rate.
-    B, L, D = c["batch"], cfg.n_layers, cfg.d_model
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    GN, K1 = cfg.ssm_groups * N, cfg.ssm_dconv - 1
-    state = L * B * H * N * P * 4
-    conv = L * B * K1 * (cfg.d_inner + 2 * GN) * 2
-    res["cache_bytes"] = state + conv
-    res["decode_bytes"] = (res["param_bytes"] - res["embed_bytes"]
-                           + B * D * 2 + 2 * (state + conv))
-    # Prefill FLOPs: every non-embedding weight at every position (the LM
-    # head at the last one only), plus the SSD products per chunk (C.B over
-    # Q x Q pairs, their weights times x, the chunk states and the
-    # inter-chunk term).
-    S = c["prompt_len"]
-    Q = min(cfg.ssm_chunk, S)
-    head = D * cfg.vocab
-    dense = res["n_params"] - res["embed_bytes"] // 2 - head
-    ssd = 2 * B * S * H * (Q * N + Q * P + 2 * N * P) * L
-    res["prefill_flop"] = 2 * dense * B * S + 2 * head * B + ssd
-    serving_times(res)
-    print(f"[serve ssm] {c['arch']} (d_model {D}, {L} layers, d_inner "
-          f"{cfg.d_inner}, {H} heads of {P}, {cfg.ssm_groups} groups, state "
-          f"{N}, vocab {cfg.vocab}, {cfg.compute_dtype}): {res['n_params']} "
-          f"parameters, {res['param_bytes']} bytes on the card; engine "
-          f"built in {res['init_s']:.3f} s, peak "
-          f"{res['init_peak_bytes'] / 2**30:.2f} GiB during init [{card}]")
-    report_serving("serve ssm", res, c, cfg, card, SSM_CACHE_REL_L2)
-    free_card()
-    tr = res["train"] = ssm_train(device, cfg, SSM_TRAIN)
-    print(f"[serve ssm] training at full width (make_train_step, batch "
-          f"{SSM_TRAIN['batch']}, seq {SSM_TRAIN['seq']}): state built in "
-          f"{tr['init_s']:.3f} s, losses {tr['losses']}, ms per step "
-          f"{[round(x, 3) for x in tr['step_ms']]}, peak "
-          f"{tr['peak_bytes'] / 2**30:.2f} GiB [{card}]")
-    print("[serve ssm] summary " + json.dumps(no_nan(res)))
     return res
 
 
@@ -2390,11 +2521,12 @@ def check_buckets_once(sync, c0: np.ndarray, c1: np.ndarray) -> None:
 
 
 def phase_vit(device, card: str) -> dict:
-    """ViT-Base at full width and depth over 4 simulated DP ranks through
-    OCCL: ``VIT_HOST_STEPS`` host-driven steps of ``run_occl_dp``, then one
-    ``make_overlap_grads_step`` step at ``VIT_OVERLAP_TICKS`` ticks per
-    boundary and one at 0 (barrier), each held against the float64 average
-    of the per-rank grads, every bucket completed once per rank."""
+    """ViT-Base at full width and ``VIT["n_layers"]`` layers over 4
+    simulated DP ranks through OCCL: ``VIT_HOST_STEPS`` host-driven steps
+    of ``run_occl_dp``, then one ``make_overlap_grads_step`` step at
+    ``VIT_OVERLAP_TICKS`` ticks per boundary and one at 0 (barrier), each
+    held against the float64 average of the per-rank grads, every bucket
+    completed once per rank."""
     import argparse
 
     import torch
@@ -2405,7 +2537,11 @@ def phase_vit(device, card: str) -> dict:
     from repro_torch.train.step import (make_grads_step,
                                         make_overlap_grads_step)
 
-    cfg = get_config(VIT["arch"])
+    full = get_config(VIT["arch"])
+    cfg = dataclasses.replace(full, n_layers=VIT["n_layers"])
+    print(f"[vit] {VIT['arch']} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}), {cfg.n_layers} of its "
+          f"{full.n_layers} layers [{card}]")
     cell = ShapeCell("vit", 0, VIT["batch"], "train")
     args = argparse.Namespace(
         dp=VIT["dp"], steps=VIT_HOST_STEPS,
@@ -2750,11 +2886,13 @@ def main(argv=None) -> int:
         checkpoint path) must launch no kernel."""
         for k in counters:
             k.launches = 0
+        t0 = time.perf_counter()
         res = fn()
         paths[name] = tuple(k.launches for k in counters)
         print(f"[path] {name}: fused_burst launches {paths[name][0]}, "
               f"fused_primitive launches {paths[name][1]}, chunk_combine "
-              f"launches {paths[name][2]}")
+              f"launches {paths[name][2]}; {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
         if fabric:
             assert paths[name][0] > 0, (name, paths[name])
         else:
@@ -2791,16 +2929,23 @@ def main(argv=None) -> int:
                       lambda: phase_serve_batched(device, card))
     assert paths["serve batched"][0] >= sum(
         serve[k]["ticked"] for k in ("preempt_off", "preempt_on"))
-    llama = main_path("serve fullwidth",
-                      lambda: phase_serve_fullwidth(device, card))
+    llama = main_path("serve fullwidth", lambda: phase_serve_model(
+        device, card, "serve fullwidth", LLAMA_SERVE, LLAMA_BOUNDS))
     assert paths["serve fullwidth"][0] >= llama["ticked"]
     free_card()
     main_path("train default", lambda: phase_train_default(device, card),
               fabric=False)
     free_card()
-    ssm = main_path("serve ssm", lambda: phase_serve_ssm(device, card))
+    ssm = main_path("serve ssm", lambda: phase_serve_model(
+        device, card, "serve ssm", SSM_SERVE, SSM_CACHE_REL_L2, SSM_TRAIN))
     assert paths["serve ssm"][0] >= ssm["ticked"]
     free_card()
+    for tag, spec, bounds, train in SERVE_FAMILIES:
+        res = main_path(tag, lambda: phase_serve_model(
+            device, card, tag, spec, bounds, train))
+        assert paths[tag][0] >= res["ticked"]
+        del res
+        free_card()
     vit = main_path("vit", lambda: phase_vit(device, card))
     assert paths["vit"][0] >= sum(r["supersteps"] for r in vit["host_steps"])
     free_card()

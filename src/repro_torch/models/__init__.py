@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense, moe and ssm families and ViT (the
-paper's model)."""
+"""Model zoo of the port: the dense, moe, ssm, hybrid, encdec and vlm
+families and ViT (the paper's model)."""
 from .io import TensorSpec, train_specs
 from .transformer import Model, build_model
 

@@ -8,9 +8,8 @@ stored probabilities take ``_p_dtype()`` before the PV product, which
 accumulates in float32 — the reference's numerics.  These are plain tensor
 math in the reference too (no TPU kernel), so plain PyTorch ops are the
 port.  The knobs read the reference's environment variables
-(``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_KV_BLOCK``, ``REPRO_ATTN_BF16``).
-The recursive-halving causal path (``REPRO_CAUSAL_REC``) is not ported
-yet (ROADMAP.md, "Modules to port", item 4).
+(``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_KV_BLOCK``, ``REPRO_ATTN_BF16``,
+``REPRO_CAUSAL_REC``: the recursive-halving causal path's levels).
 """
 from __future__ import annotations
 
@@ -85,26 +84,27 @@ def attention(q, k, v, *, mode: str = "causal", window: int = 0,
     return out.reshape(B, Sq, Hq, dh).to(q.dtype)
 
 
-def blockwise_attention(q, k, v, *, mode: str = "causal", window: int = 0,
-                        prefix_len: int = 0) -> torch.Tensor:
-    """Flash-style streaming attention over KV blocks of ``_kv_block()``
-    with a running (max, sum, acc) per query; fully masked blocks still
-    stream, as in the reference."""
+def _blockwise_stats(q, k, v, *, mode: str, window: int, prefix_len: int,
+                     q_offset: int = 0, k_offset: int = 0) -> tuple:
+    """Flash-style streaming over KV blocks of ``min(_kv_block(), Skv)``
+    with a running (max, sum, acc) per query, returned before the
+    normalisation so that partial attentions merge; fully masked blocks
+    still stream, as in the reference."""
     B, S, Hq, dh = q.shape
     _, Skv, Hkv, _ = k.shape
     g = Hq // Hkv
-    KB = _kv_block()
+    KB = min(_kv_block(), Skv)
     nb = Skv // KB
-    assert Skv % KB == 0, "pad sequences to a multiple of the KV block"
+    assert Skv % KB == 0
     qf = q.float().reshape(B, S, Hkv, g, dh) / np.sqrt(dh)
     kb = k.float().reshape(B, nb, KB, Hkv, dh)
     vb = v.float().reshape(B, nb, KB, Hkv, dh)
-    qpos = torch.arange(S, device=q.device)
+    qpos = torch.arange(S, device=q.device) + q_offset
     m_run = torch.full((B, Hkv, g, S), NEG_INF, device=q.device)
     l_run = torch.zeros((B, Hkv, g, S), device=q.device)
     acc = torch.zeros((B, Hkv, g, S, dh), device=q.device)
     for j in range(nb):
-        kpos = j * KB + torch.arange(KB, device=q.device)
+        kpos = k_offset + j * KB + torch.arange(KB, device=q.device)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb[:, j])
         s = s + _mask(qpos, kpos, mode, window, prefix_len)[None, None, None]
         m_new = torch.maximum(m_run, s.amax(-1))
@@ -114,16 +114,70 @@ def blockwise_attention(q, k, v, *, mode: str = "causal", window: int = 0,
         acc = acc * scale[..., None] + _pv(p, vb[:, j],
                                            "bhgqk,bkhd->bhgqd")
         m_run = m_new
+    return m_run, l_run, acc
+
+
+def _merge_stats(a: tuple, b: tuple) -> tuple:
+    """Merge two flash partials over disjoint KV ranges."""
+    ma, la, xa = a
+    mb, lb, xb = b
+    m = torch.maximum(ma, mb)
+    sa, sb = torch.exp(ma - m), torch.exp(mb - m)
+    return m, la * sa + lb * sb, xa * sa[..., None] + xb * sb[..., None]
+
+
+def _finish_stats(stats: tuple, dtype) -> torch.Tensor:
+    _, l_run, acc = stats
+    B, Hkv, g, S, dh = acc.shape
     out = acc / l_run.clamp(min=1e-30)[..., None]
-    return out.movedim(3, 1).reshape(B, S, Hq, dh).to(q.dtype)
+    return out.movedim(3, 1).reshape(B, S, Hkv * g, dh).to(dtype)
+
+
+def blockwise_attention(q, k, v, *, mode: str = "causal", window: int = 0,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """Flash-style streaming attention over KV blocks of ``_kv_block()``."""
+    assert k.shape[1] % _kv_block() == 0, \
+        "pad sequences to a multiple of the KV block"
+    return _finish_stats(_blockwise_stats(q, k, v, mode=mode, window=window,
+                                          prefix_len=prefix_len), q.dtype)
+
+
+def causal_rec_stats(q, k, v, levels: int, q_offset: int = 0,
+                     k_offset: int = 0) -> tuple:
+    """Recursive-halving causal attention: causal(S) = [causal(top half)]
+    and [full(bottom -> top) merged with causal(bottom half)], so each
+    level skips the strictly upper quarter of the score matrix with static
+    shapes; below two KV blocks (or at an odd length) it streams blockwise."""
+    S = q.shape[1]
+    if levels <= 0 or S < 2 * _kv_block() or S % 2:
+        return _blockwise_stats(q, k, v, mode="causal", window=0,
+                                prefix_len=0, q_offset=q_offset,
+                                k_offset=k_offset)
+    h = S // 2
+    top = causal_rec_stats(q[:, :h], k[:, :h], v[:, :h], levels - 1,
+                           q_offset, k_offset)
+    bot_full = _blockwise_stats(q[:, h:], k[:, :h], v[:, :h], mode="bidir",
+                                window=0, prefix_len=0,
+                                q_offset=q_offset + h, k_offset=k_offset)
+    bot_diag = causal_rec_stats(q[:, h:], k[:, h:], v[:, h:], levels - 1,
+                                q_offset + h, k_offset + h)
+    bot = _merge_stats(bot_full, bot_diag)
+    return tuple(torch.cat([t, b], dim=3) for t, b in zip(top, bot))
+
+
+def causal_rec_attention(q, k, v, levels: int = 2) -> torch.Tensor:
+    return _finish_stats(causal_rec_stats(q, k, v, levels), q.dtype)
 
 
 def full_or_blockwise(q, k, v, **kw) -> torch.Tensor:
+    """Plain attention up to ``_blockwise_threshold()`` query positions,
+    beyond it blockwise; with ``REPRO_CAUSAL_REC`` > 0 a causal,
+    unwindowed self-attention (Sq == Skv) takes the recursive path."""
     if q.shape[1] > _blockwise_threshold():
-        if int(os.environ.get("REPRO_CAUSAL_REC", "0")) > 0:
-            raise NotImplementedError(
-                "the recursive-halving causal attention is not ported yet "
-                "(ROADMAP.md, 'Modules to port', item 4)")
+        levels = int(os.environ.get("REPRO_CAUSAL_REC", "0"))
+        if (levels > 0 and kw.get("mode", "causal") == "causal"
+                and not kw.get("window") and q.shape[1] == k.shape[1]):
+            return causal_rec_attention(q, k, v, levels)
         return blockwise_attention(q, k, v, **kw)
     return attention(q, k, v, **kw)
 

@@ -1,9 +1,9 @@
 """Input specs of a training batch for an (arch x shape-cell).
 
-PyTorch port of ``repro.models.io.train_specs`` for the dense, moe, ssm
-and ViT families: :class:`TensorSpec` stand-ins (shape and dtype, no
-allocation).  Modality frontends are stubs, as in the reference: ``[vit]``
-gets patch embeddings.
+PyTorch port of ``repro.models.io.train_specs``: :class:`TensorSpec`
+stand-ins (shape and dtype, no allocation).  Modality frontends are stubs,
+as in the reference: ``[vit]`` and ``[vlm]`` get patch embeddings (vlm
+then ``S - vis_tokens`` text tokens), ``[encdec]`` frame embeddings.
 """
 from __future__ import annotations
 
@@ -25,9 +25,13 @@ def train_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
     if cfg.family == "vit":
         return {"patches": TensorSpec((B, cfg.vis_tokens, cfg.d_model), cdt),
                 "labels": TensorSpec((B,), torch.int32)}
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"train_specs for the {cfg.family} family is not ported yet "
-            "(ROADMAP.md, 'Modules to port', item 4)")
-    return {"tokens": TensorSpec((B, S), torch.int32),
-            "targets": TensorSpec((B, S), torch.int32)}
+    out = {}
+    text = S
+    if cfg.family == "vlm":
+        text = S - cfg.vis_tokens
+        out["patches"] = TensorSpec((B, cfg.vis_tokens, cfg.d_model), cdt)
+    if cfg.family == "encdec":
+        out["frames"] = TensorSpec((B, cfg.enc_frames, cfg.d_model), cdt)
+    out["tokens"] = TensorSpec((B, text), torch.int32)
+    out["targets"] = TensorSpec((B, text), torch.int32)
+    return out

@@ -3,7 +3,7 @@
 PyTorch port of ``repro.models.layers``.  The formulas are the reference's,
 dtype for dtype: norms and rotary embeddings compute in float32 and cast
 back; ``rms_norm`` scales by ``1 + w``; ``rope`` rotates halves (not
-interleaved pairs); ``gelu_mlp`` is the tanh approximation.  The
+interleaved pairs); ``geglu`` and ``gelu_mlp`` use the tanh approximation.  The
 reference's per-parameter RNG (``key_for`` / ``ninit``) becomes
 :func:`ninit` with an explicit :class:`torch.Generator` per parameter path,
 seeded from the CRC of the model seed and the path, so a parameter's values
@@ -68,6 +68,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def swiglu(x, wg, wu, wd):
     return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def geglu(x, wg, wu, wd):
+    return (F.gelu(x @ wg, approximate="tanh") * (x @ wu)) @ wd
 
 
 def gelu_mlp(x, w1, b1, w2, b2):

@@ -1,5 +1,5 @@
-"""The model zoo's training and serving paths for the dense, moe, ssm and
-ViT families.
+"""The model zoo's training and serving paths: the dense, moe, ssm,
+hybrid, encdec, vlm and ViT families.
 
 PyTorch port of ``repro.models.transformer``: one functional ``Model`` per
 architecture,
@@ -19,26 +19,43 @@ the stack (the reference's ``lax.scan``); ``cfg.remat`` other than
 distinguished from ``"full"``).  ``loss_fn`` casts every parameter to
 ``cfg.compute_dtype`` first, as the reference does.
 
-The moe family's blocks are :mod:`repro_torch.models.moe` (each layer adds
-its load-balance loss to the trunk's aux term, weighted 0.01 in the loss);
-the ssm family's (Mamba2, attention-free) are :mod:`repro_torch.models.ssm`.
+The families' blocks:
 
-Serving: the cache is the reference's dict.  Dense and moe: ``k`` / ``v``
-stacked [L, B, Smax, KV, dh] (zero-padded to ``pad_to``) and ``pos``, an
-int32 0-d tensor.  ``decode_step`` writes each layer's new k / v into the
-cache IN PLACE at ``min(pos, Smax - 1)`` (the reference's
+* moe: :mod:`repro_torch.models.moe` (each layer adds its load-balance
+  loss to the trunk's aux term, weighted 0.01 in the loss);
+* ssm (Mamba2, attention-free): :mod:`repro_torch.models.ssm`;
+* hybrid (Zamba2): the ssm trunk plus ONE weight-shared block (``shared``:
+  ``proj`` [2D, D], causal attention, SwiGLU) applied after every
+  ``shared_attn_period``-th layer to ``concat(h, x0) @ proj``, ``x0`` the
+  embedding; a Python branch on the static layer index where the
+  reference takes ``lax.cond``;
+* encdec (SeamlessM4T): a bidirectional, rotary encoder over
+  ``batch["frames"]``, normalised by ``enc_norm``, that every decoder layer
+  cross-attends (``cross``: only the query side normalised, the encoder
+  memory through ``wk`` / ``wv`` as it is, no rope);
+* vlm (PaliGemma): ``batch["patches"] @ vis_proj`` prepended to the
+  tokens, prefix-LM attention over the image, GeGLU MLPs, the image
+  positions stripped before the loss.
+
+Serving: the cache is the reference's dict.  Dense, moe, encdec and vlm:
+``k`` / ``v`` stacked [L, B, Smax, KV, dh] (zero-padded to ``pad_to``) and
+``pos``, an int32 0-d tensor.  ``decode_step`` writes each layer's new
+k / v into the cache IN PLACE at ``min(pos, Smax - 1)`` (the reference's
 ``dynamic_update_slice`` position, read on the device, never on the host)
-and so consumes the cache it is given.  ssm: ``state`` [L, B, H, N, P]
-float32, ``conv_x`` / ``conv_B`` / ``conv_C`` [L, B, d_conv - 1, C] (the
-trailing conv inputs) and ``pos``; ``pad_to`` is ignored, the prompt
-length must be a multiple of ``min(ssm_chunk, S)``, and ``decode_step``
-writes the new states into the cache in place too.  The vit family has no
-serving path (``ValueError``, as the reference fails on its missing
-``embed``).
-
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md,
-"Modules to port", item 4): the hybrid, encdec and vlm families, their
-``prefill`` and ``decode_step`` included.
+and so consumes the cache it is given.  vlm: the cache covers the image
+and the prompt, and ``pos`` starts after both; with ``pad_to`` below that
+no padding happens and every decode step overwrites the last slot, as in
+the reference.  encdec: the cache also carries ``enc_out``, and every
+decode step recomputes the cross-attention K / V from it, as the
+reference does.  ssm: ``state`` [L, B, H, N, P] float32, ``conv_x`` /
+``conv_B`` / ``conv_C`` [L, B, d_conv - 1, C] (the trailing conv inputs)
+and ``pos``; ``pad_to`` is ignored, the prompt length must be a multiple
+of ``min(ssm_chunk, S)``, and ``decode_step`` writes the new states into
+the cache in place too.  hybrid: the ssm cache plus ``shared_k`` /
+``shared_v`` [n_layers // shared_attn_period, B, Smax, KV, dh], one per
+application of the shared block, zero-padded to ``pad_to`` and written in
+place as ``k`` / ``v`` are.  The vit family has no serving path
+(``ValueError``, as the reference fails on its missing ``embed``).
 """
 from __future__ import annotations
 
@@ -55,11 +72,11 @@ from ..tree import tree_map
 from . import attention as A
 from . import moe as M
 from . import ssm as SSM
-from .layers import (cross_entropy, gelu_mlp, layer_norm, ninit, rms_norm,
-                     rope, swiglu)
+from .layers import (cross_entropy, geglu, gelu_mlp, layer_norm, ninit,
+                     rms_norm, rope, swiglu)
 
 VOCAB_PAD = 256   # Megatron-style: pad the vocab to a multiple of 256.
-FAMILIES = ("dense", "moe", "ssm", "vit")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "vit")
 SSM_CACHE = ("state", "conv_x", "conv_B", "conv_C")   # [L, ...] each
 
 
@@ -75,11 +92,6 @@ def mask_vocab_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(keep, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Modules to port', item 4)")
 
 
 # ======================================================================
@@ -103,36 +115,45 @@ def init_attn(seed, path, cfg: ArchConfig, dtype, device):
     return p
 
 
-def _qkv(cfg, p, x, *, rope_on=True):
-    B, S = x.shape[:2]
+def _qkv(cfg, p, x, kv_x=None, *, rope_on=True):
+    """q from ``x``, k / v from ``kv_x`` (default ``x``; cross-attention
+    passes the encoder memory)."""
+    B, Sq = x.shape[:2]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
+    kv_x = x if kv_x is None else kv_x
+    Skv = kv_x.shape[1]
+    q = (x @ p["wq"]).reshape(B, Sq, H, dh)
+    k = (kv_x @ p["wk"]).reshape(B, Skv, KV, dh)
+    v = (kv_x @ p["wv"]).reshape(B, Skv, KV, dh)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if rope_on:
-        pos = torch.broadcast_to(torch.arange(S, device=x.device), (B, S))
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+        pos = lambda n: torch.broadcast_to(
+            torch.arange(n, device=x.device), (B, n))
+        q = rope(q, pos(Sq), cfg.rope_theta)
+        k = rope(k, pos(Skv), cfg.rope_theta)
     return q, k, v
 
 
-def attn_train(cfg, p, x):
-    """Causal self-attention block (the dense family's)."""
+def attn_train(cfg, p, x, *, mode="causal", prefix_len=0, kv_x=None,
+               rope_on=True):
+    """Attention block; with ``kv_x`` (the encoder memory, already
+    normalised) a cross-attention that normalises only the query side."""
     h = rms_norm(x, p["norm"])
-    q, k, v = _qkv(cfg, p, h)
-    y = A.full_or_blockwise(q, k, v, mode="causal", window=cfg.swa_window)
+    q, k, v = _qkv(cfg, p, h, kv_x, rope_on=rope_on)
+    y = A.full_or_blockwise(q, k, v, mode=mode, window=cfg.swa_window,
+                            prefix_len=prefix_len)
     B, Sq = x.shape[:2]
     return x + y.reshape(B, Sq, -1) @ p["wo"]
 
 
-def attn_prefill(cfg, p, x):
+def attn_prefill(cfg, p, x, *, mode="causal", prefix_len=0):
     """Like :func:`attn_train`, also returning (k, v) for the cache."""
     h = rms_norm(x, p["norm"])
     q, k, v = _qkv(cfg, p, h)
-    y = A.full_or_blockwise(q, k, v, mode="causal", window=cfg.swa_window)
+    y = A.full_or_blockwise(q, k, v, mode=mode, window=cfg.swa_window,
+                            prefix_len=prefix_len)
     B, Sq = x.shape[:2]
     return x + y.reshape(B, Sq, -1) @ p["wo"], (k, v)
 
@@ -188,7 +209,8 @@ def mlp_apply(p, x, kind="swiglu"):
         h = layer_norm(x, p["norm_w"], p["norm_b"])
         return x + gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"])
     h = rms_norm(x, p["norm"])
-    return x + swiglu(h, p["wg"], p["wu"], p["wd"])
+    fn = geglu if kind == "geglu" else swiglu
+    return x + fn(h, p["wg"], p["wu"], p["wd"])
 
 
 def _stack(layers: list) -> dict:
@@ -242,80 +264,138 @@ class Model:
         dt = getattr(torch, cfg.param_dtype)
         fam = cfg.family
         if fam not in FAMILIES:
-            raise _not_ported(f"the {fam} family")
-        V = padded_vocab(cfg.vocab)
+            raise ValueError(fam)
+        D, V = cfg.d_model, padded_vocab(cfg.vocab)
+        w = lambda path, shape: ninit(seed, path, shape, 0.02, dt, device)
+        zeros = lambda: torch.zeros((D,), dtype=dt, device=device)
+        attn = lambda path: init_attn(seed, path, cfg, dt, device)
+        mlp = lambda path, kind="swiglu": init_mlp(seed, path, cfg, dt,
+                                                   device, kind=kind)
         p: dict[str, Any] = {}
-        if fam in ("dense", "moe"):
-            p["embed"] = ninit(seed, "embed", (V, cfg.d_model), 0.02, dt,
-                               device)
-            if fam == "dense":
-                block = lambda i: {"mlp": init_mlp(seed, f"l{i}/mlp", cfg,
-                                                   dt, device)}
-            else:
-                block = lambda i: {"moe": M.init_moe_block(
-                    seed, f"l{i}/moe", cfg, dt, device)}
-            p["layers"] = _stack([{
-                "attn": init_attn(seed, f"l{i}/attn", cfg, dt, device),
-                **block(i)} for i in range(cfg.n_layers)])
-            p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
-                                          device=device)
-            p["lm_head"] = ninit(seed, "lm_head", (cfg.d_model, V), 0.02,
-                                 dt, device)
-        elif fam == "ssm":
-            p["embed"] = ninit(seed, "embed", (V, cfg.d_model), 0.02, dt,
-                               device)
-            p["layers"] = _stack([SSM.init_ssm_block(seed, f"l{i}", cfg, dt,
-                                                     device)
+        if fam == "vit":
+            p["pos_embed"] = w("pos", (cfg.vis_tokens, D))
+            p["patch_proj"] = w("patch_proj", (D, D))
+            p["layers"] = _stack([{"attn": attn(f"l{i}/attn"),
+                                   "mlp": mlp(f"l{i}/mlp", "gelu")}
                                   for i in range(cfg.n_layers)])
-            p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
-                                          device=device)
-            p["lm_head"] = ninit(seed, "lm_head", (cfg.d_model, V), 0.02,
-                                 dt, device)
-        else:   # vit
-            p["pos_embed"] = ninit(seed, "pos", (cfg.vis_tokens, cfg.d_model),
-                                   0.02, dt, device)
-            p["patch_proj"] = ninit(seed, "patch_proj",
-                                    (cfg.d_model, cfg.d_model), 0.02, dt,
-                                    device)
-            p["layers"] = _stack([{
-                "attn": init_attn(seed, f"l{i}/attn", cfg, dt, device),
-                "mlp": init_mlp(seed, f"l{i}/mlp", cfg, dt, device,
-                                kind="gelu"),
-            } for i in range(cfg.n_layers)])
-            p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
-                                          device=device)
-            p["head"] = ninit(seed, "head", (cfg.d_model, V), 0.02, dt,
-                              device)
+            p["final_norm"] = zeros()
+            p["head"] = w("head", (D, V))
+            return p
+        p["embed"] = w("embed", (V, D))
+        if fam in ("dense", "vlm"):
+            block = lambda i: {"attn": attn(f"l{i}/attn"),
+                               "mlp": mlp(f"l{i}/mlp")}
+        elif fam == "moe":
+            block = lambda i: {"attn": attn(f"l{i}/attn"),
+                               "moe": M.init_moe_block(seed, f"l{i}/moe",
+                                                       cfg, dt, device)}
+        elif fam == "encdec":
+            block = lambda i: {"attn": attn(f"d{i}/attn"),
+                               "cross": attn(f"d{i}/cross"),
+                               "mlp": mlp(f"d{i}/mlp")}
+        else:   # ssm, hybrid
+            block = lambda i: SSM.init_ssm_block(seed, f"l{i}", cfg, dt,
+                                                 device)
+        p["layers"] = _stack([block(i) for i in range(cfg.n_layers)])
+        if fam == "hybrid":
+            p["shared"] = {"proj": w("shared/proj", (2 * D, D)),
+                           "attn": attn("shared/attn"),
+                           "mlp": mlp("shared/mlp")}
+        elif fam == "encdec":
+            p["enc_layers"] = _stack([{"attn": attn(f"e{i}/attn"),
+                                       "mlp": mlp(f"e{i}/mlp")}
+                                      for i in range(cfg.enc_layers)])
+            p["enc_norm"] = zeros()
+        elif fam == "vlm":
+            p["vis_proj"] = w("vis_proj", (D, D))
+        p["final_norm"] = zeros()
+        p["lm_head"] = w("lm_head", (D, V))
         return p
 
     # ------------------------------------------------------------------
-    def _trunk_train(self, params, x):
+    def _mlp_kind(self) -> str:
+        return "geglu" if self.cfg.family == "vlm" else "swiglu"
+
+    def _shared(self, sp, h, x0, kv=None, pos=None):
+        """The hybrid's shared block on ``concat(h, x0) @ proj``, added to
+        ``h``.  ``kv``: this application's (k, v) cache, for a decode step
+        at ``pos``; without it the block runs causally over the sequence
+        and also returns its (k, v)."""
+        z = torch.cat([h, x0], dim=-1) @ sp["proj"]
+        if kv is None:
+            z, kv = attn_prefill(self.cfg, sp["attn"], z)
+        else:
+            z = attn_decode(self.cfg, sp["attn"], z, *kv, pos)
+        return h + mlp_apply(sp["mlp"], z, "swiglu"), kv
+
+    def _encode(self, params, frames, policy: str):
+        """The encdec encoder (bidirectional, rotary) -> its normalised
+        output, the decoder's cross-attention memory."""
+        cfg = self.cfg
+
+        def body(h, lp):
+            h = attn_train(cfg, lp["attn"], h, mode="bidir")
+            return mlp_apply(lp["mlp"], h, "swiglu")
+
+        body = _remat(body, policy)
+        for lp in _layers(params["enc_layers"], cfg.enc_layers):
+            frames = body(frames, lp)
+        return rms_norm(frames, params["enc_norm"])
+
+    def _trunk_train(self, params, x, *, mode="causal", prefix_len=0,
+                     enc_out=None):
         """The decoder stack: (x, summed aux load-balance loss)."""
         cfg = self.cfg
-        if cfg.family == "dense":
-            def body(h, lp):
-                h = attn_train(cfg, lp["attn"], h)
-                return mlp_apply(lp["mlp"], h, "swiglu"), None
-        elif cfg.family == "moe":
-            def body(h, lp):
-                h = attn_train(cfg, lp["attn"], h)
+        fam = cfg.family
+        kind = self._mlp_kind()
+        if fam in ("dense", "vlm"):
+            def body(h, lp, i):
+                h = attn_train(cfg, lp["attn"], h, mode=mode,
+                               prefix_len=prefix_len)
+                return mlp_apply(lp["mlp"], h, kind), None
+        elif fam == "moe":
+            def body(h, lp, i):
+                h = attn_train(cfg, lp["attn"], h, mode=mode)
                 y, a = M.moe_forward(cfg, lp["moe"], h)
                 return h + y, a
-        elif cfg.family == "ssm":
-            def body(h, lp):
-                return SSM.ssd_forward(cfg, lp, h)[0], None
-        else:
-            raise _not_ported(f"the {cfg.family} trunk")
+        elif fam == "encdec":
+            def body(h, lp, i):
+                h = attn_train(cfg, lp["attn"], h)
+                h = attn_train(cfg, lp["cross"], h, mode="bidir",
+                               kv_x=enc_out, rope_on=False)
+                return mlp_apply(lp["mlp"], h, kind), None
+        else:   # ssm, hybrid: the layer index is static, x the embedding
+            def body(h, lp, i):
+                h = SSM.ssd_forward(cfg, lp, h)[0]
+                if fam == "hybrid" and (i + 1) % cfg.shared_attn_period == 0:
+                    h = self._shared(params["shared"], h, x)[0]
+                return h, None
 
         body = _remat(body, cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in _layers(params["layers"], cfg.n_layers):
-            x, a = body(x, lp)
+        h = x
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            h, a = body(h, lp, i)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return h, aux
 
     # ------------------------------------------------------------------
+    def _embed(self, params, batch, enc: str):
+        """Token embeddings, with the vlm's image prefix: (x, mode,
+        prefix_len, encdec memory or None).  ``enc``: the encoder's remat
+        policy."""
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self._encode(params, batch["frames"].to(cdt), enc)
+        x = params["embed"][batch["tokens"].long()]
+        if cfg.family == "vlm":
+            vis = batch["patches"].to(cdt) @ params["vis_proj"]
+            return torch.cat([vis, x], dim=1), "prefix", cfg.vis_tokens, None
+        return x, "causal", 0, enc_out
+
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
@@ -345,11 +425,12 @@ class Model:
             return -torch.mean(
                 torch.sum(F.log_softmax(logits, dim=-1) * onehot, dim=-1))
 
-        if fam not in ("dense", "moe", "ssm"):
-            raise _not_ported(f"the {fam} family")
-        x = params["embed"][batch["tokens"].long()]
-        x, aux = self._trunk_train(params, x)
+        x, mode, prefix_len, enc_out = self._embed(params, batch, cfg.remat)
+        x, aux = self._trunk_train(params, x, mode=mode,
+                                   prefix_len=prefix_len, enc_out=enc_out)
         x = rms_norm(x, params["final_norm"])
+        if fam == "vlm":    # strip the image positions from the loss
+            x = x[:, cfg.vis_tokens:]
         logits = mask_vocab_logits((x @ params["lm_head"]).float(),
                                    cfg.vocab)
         return cross_entropy(logits, batch["targets"]) + 0.01 * aux
@@ -357,18 +438,15 @@ class Model:
     # ------------------------------------------------------------------
     # serving: prefill + decode
     # ------------------------------------------------------------------
-    def _serving_family(self, what: str) -> None:
-        fam = self.cfg.family
-        if fam == "vit":
-            raise ValueError(fam)
-        if fam not in ("dense", "moe", "ssm"):
-            raise _not_ported(f"{what} of the {fam} family")
+    def _serving_family(self) -> None:
+        if self.cfg.family == "vit":
+            raise ValueError(self.cfg.family)
 
     def _block_ffn(self, lp, h):
         if self.cfg.family == "moe":
             y, _ = M.moe_forward(self.cfg, lp["moe"], h)
             return h + y
-        return mlp_apply(lp["mlp"], h, "swiglu")
+        return mlp_apply(lp["mlp"], h, self._mlp_kind())
 
     def _last_logits(self, params, x):
         x = rms_norm(x, params["final_norm"])
@@ -376,63 +454,87 @@ class Model:
                                  self.cfg.vocab)
 
     def prefill(self, params, batch, pad_to=None):
-        """Causal pass over ``batch["tokens"]`` [B, S] -> (logits of the
-        last position [B, 1, V], cache).  ``pad_to``: the cache's capacity
-        (prompt + expected decode steps); without it the first decode step
-        has no free slot and overwrites the last cached position."""
-        self._serving_family("prefill")
+        """Pass over ``batch["tokens"]`` [B, S] (and the family's
+        ``patches`` / ``frames``) -> (logits of the last position
+        [B, 1, V], cache).  ``pad_to``: the cache's capacity (prompt, image
+        and expected decode steps); without it the first decode step has
+        no free slot and overwrites the last cached position."""
+        self._serving_family()
         cfg = self.cfg
+        fam = cfg.family
         cdt = getattr(torch, cfg.compute_dtype)
         params = tree_map(lambda a: a.to(cdt), params)
-        tokens = batch["tokens"]
-        x = params["embed"][tokens.long()]
-        B, S = tokens.shape
-        pos = torch.tensor(S, dtype=torch.int32, device=x.device)
-        if cfg.family == "ssm":
-            outs = []
-            for lp in _layers(params["layers"], cfg.n_layers):
+        x, mode, prefix_len, enc_out = self._embed(params, batch, "none")
+        B, S = x.shape[:2]
+        Smax = max(S, pad_to or 0)
+        kv_shape = lambda n: (n, B, Smax, cfg.n_kv_heads, cfg.d_head)
+        if fam in ("ssm", "hybrid"):
+            x0, outs, kvs = x, [], []
+            for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
                 x, (st, cv) = SSM.ssd_forward(cfg, lp, x)
                 outs.append((st, *cv))
+                if fam == "hybrid" and (i + 1) % cfg.shared_attn_period == 0:
+                    x, kv = self._shared(params["shared"], x, x0)
+                    kvs.append(kv)
             cache = {k: torch.stack(v) for k, v in zip(SSM_CACHE,
                                                        zip(*outs))}
-            return (self._last_logits(params, x[:, -1:]),
-                    dict(cache, pos=pos))
-        Smax = max(S, pad_to or 0)
-        shape = (cfg.n_layers, B, Smax, cfg.n_kv_heads, cfg.d_head)
-        kc = torch.zeros(shape, dtype=cdt, device=x.device)
-        vc = torch.zeros(shape, dtype=cdt, device=x.device)
-        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
-            x, (k, v) = attn_prefill(cfg, lp["attn"], x)
-            kc[i, :, :S] = k
-            vc[i, :, :S] = v
-            x = self._block_ffn(lp, x)
-        cache = {"k": kc, "v": vc, "pos": pos}
+            if kvs:
+                for name, part in (("shared_k", 0), ("shared_v", 1)):
+                    buf = torch.zeros(kv_shape(len(kvs)), dtype=cdt,
+                                      device=x.device)
+                    buf[:, :, :S] = torch.stack([kv[part] for kv in kvs])
+                    cache[name] = buf
+        else:
+            kc = torch.zeros(kv_shape(cfg.n_layers), dtype=cdt,
+                             device=x.device)
+            vc = torch.zeros_like(kc)
+            for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+                x, (k, v) = attn_prefill(cfg, lp["attn"], x, mode=mode,
+                                         prefix_len=prefix_len)
+                kc[i, :, :S] = k
+                vc[i, :, :S] = v
+                if fam == "encdec":
+                    x = attn_train(cfg, lp["cross"], x, mode="bidir",
+                                   kv_x=enc_out, rope_on=False)
+                x = self._block_ffn(lp, x)
+            cache = {"k": kc, "v": vc}
+            if fam == "encdec":
+                cache["enc_out"] = enc_out
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
         return self._last_logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens):
         """tokens: [B] int32 -> (logits [B, V], cache with ``pos + 1``).
-        The input cache is CONSUMED: its ``k`` / ``v`` (ssm: ``state`` and
-        the conv states) are written in place and returned in the new
-        cache."""
-        self._serving_family("decode_step")
+        The input cache is CONSUMED: its ``k`` / ``v`` (ssm and hybrid:
+        ``state``, the conv states and ``shared_k`` / ``shared_v``) are
+        written in place and returned in the new cache."""
+        self._serving_family()
         cfg = self.cfg
+        fam = cfg.family
         cdt = getattr(torch, cfg.compute_dtype)
         params = tree_map(lambda a: a.to(cdt), params)
         pos = cache["pos"]
         x = params["embed"][tokens.long()[:, None]]
-        if cfg.family == "ssm":
+        if fam in ("ssm", "hybrid"):
+            x0, inv = x, 0
             for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
                 old = [cache[k][i] for k in SSM_CACHE]
                 x, (st, cv) = SSM.ssd_decode_step(cfg, lp, x,
                                                   (old[0], tuple(old[1:])))
                 for dst, src in zip(old, (st, *cv)):
                     dst.copy_(src)
-            return (self._last_logits(params, x[:, 0]),
-                    dict(cache, pos=pos + 1))
-        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
-            x = attn_decode(cfg, lp["attn"], x, cache["k"][i],
-                            cache["v"][i], pos)
-            x = self._block_ffn(lp, x)
+                if fam == "hybrid" and (i + 1) % cfg.shared_attn_period == 0:
+                    kv = (cache["shared_k"][inv], cache["shared_v"][inv])
+                    x, _ = self._shared(params["shared"], x, x0, kv, pos)
+                    inv += 1
+        else:
+            for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+                x = attn_decode(cfg, lp["attn"], x, cache["k"][i],
+                                cache["v"][i], pos)
+                if fam == "encdec":
+                    x = attn_train(cfg, lp["cross"], x, mode="bidir",
+                                   kv_x=cache["enc_out"], rope_on=False)
+                x = self._block_ffn(lp, x)
         return (self._last_logits(params, x[:, 0]),
                 dict(cache, pos=pos + 1))
 

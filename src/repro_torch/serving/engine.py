@@ -83,7 +83,8 @@ class ServingEngine:
     def _batchify(self, slots: list) -> dict:
         """Replay each live slot's prompt + generated suffix (newest
         ``S`` tokens) into the fixed [B, S] prefill shape; free slots
-        stay zero rows."""
+        stay zero rows.  vlm and encdec prefills get zero ``patches`` /
+        ``frames`` (the reference's stub frontends)."""
         toks = np.zeros((self.B, self.S), np.int32)
         for i, r in enumerate(slots):
             if r is None:
@@ -94,7 +95,16 @@ class ServingEngine:
                     [seq, np.asarray(r.out_tokens, np.int32)])
             seq = seq[-self.S:]
             toks[i, :len(seq)] = seq
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        cfg = self.cfg
+        zeros = lambda n: torch.zeros(
+            (self.B, n, cfg.d_model), dtype=getattr(torch, cfg.compute_dtype),
+            device=self.device)
+        if cfg.family == "vlm":
+            batch["patches"] = zeros(cfg.vis_tokens)
+        if cfg.family == "encdec":
+            batch["frames"] = zeros(cfg.enc_frames)
+        return batch
 
     def run(self) -> list[Request]:
         """Drain the queue with continuous batching; returns completed

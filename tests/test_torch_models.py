@@ -18,8 +18,10 @@ Parameters are carried across from the reference's init
   combines at the reference's own ``rtol=2e-4, atol=2e-5``.
 
 Leaf order and shapes equal ``jax.tree_util.tree_leaves`` — at full size
-for ViT-Base and Mamba2-2.7B too (``jax.eval_shape`` against the meta
-device) — since they decide the gradient buckets.
+for ViT-Base, Mamba2-2.7B, Zamba2-1.2B, PaliGemma-3B and SeamlessM4T too
+(``jax.eval_shape`` against the meta device) — since they decide the
+gradient buckets; every registered arch builds on the meta device with the
+reference's leaf count.
 """
 import dataclasses
 
@@ -57,8 +59,11 @@ from repro_torch.train.step import make_grads_step, make_train_step
 from repro_torch.tree import tree_leaves
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-ARCHS = ("vit-base", "qwen3-0.6b", "deepseek-moe-16b", "mamba2-2.7b")
-FULL_PARAMS = {"vit-base": 86_535_936, "mamba2-2.7b": 3_126_248_960}
+ARCHS = ("vit-base", "qwen3-0.6b", "deepseek-moe-16b", "mamba2-2.7b",
+         "zamba2-1.2b", "paligemma-3b", "seamless-m4t-large-v2")
+FULL_PARAMS = {"vit-base": 86_535_936, "mamba2-2.7b": 3_126_248_960,
+               "zamba2-1.2b": 1_188_848_256, "paligemma-3b": 3_039_897_600,
+               "seamless-m4t-large-v2": 2_034_886_656}
 
 
 def configs(arch, compute_dtype=None):
@@ -233,12 +238,8 @@ def test_moe_combine_scatter_matches_gather(monkeypatch):
 # the model: leaf order, loss and gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,reduced", [("vit-base", True),
-                                          ("qwen3-0.6b", True),
-                                          ("deepseek-moe-16b", True),
-                                          ("mamba2-2.7b", True),
-                                          ("vit-base", False),
-                                          ("mamba2-2.7b", False)])
+@pytest.mark.parametrize("arch,reduced", [
+    *((a, True) for a in ARCHS), *((a, False) for a in FULL_PARAMS)])
 def test_leaf_order_and_shapes_equal_reference(arch, reduced):
     jc, tc = jget(arch), tget(arch)
     if reduced:
@@ -302,11 +303,16 @@ def test_init_is_seeded_and_order_free():
                            a["layers"]["mlp"]["w1"][1])
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model(tget("zamba2-1.2b").reduced()).init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model(tget("zamba2-1.2b").reduced()).prefill({}, {})
+def test_every_arch_inits_on_meta_with_reference_leaf_count():
+    """Every registered arch, every family included, builds at full size
+    on the meta device with the reference's number of leaves."""
+    from repro.configs import _REGISTRY as jreg
+
+    for arch in jreg:
+        jp = jax.eval_shape(lambda: jinit(jget(arch)).params)
+        tp = build_model(tget(arch)).init(0, "meta")
+        assert len(tree_leaves(tp)) == len(jax.tree_util.tree_leaves(jp)), \
+            arch
 
 
 # ---------------------------------------------------------------------------

@@ -48,10 +48,28 @@ from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVING_ARCHS = ("qwen3-0.6b", "llama3-8b", "h2o-danube-3-4b",
-                 "deepseek-moe-16b")
+                 "deepseek-moe-16b", "zamba2-1.2b", "paligemma-3b",
+                 "seamless-m4t-large-v2")
 BF16_REL_L2 = 5e-2
 CACHE_REL_L2 = {"float32": 1e-4, "bfloat16": 5e-2}
 PAD_TO, PROMPT, DECODE_STEPS = 14, 12, 3
+
+
+def lengths(cfg) -> tuple[int, int]:
+    """(prompt, pad_to) of :func:`serve_both`: an ssm trunk takes whole
+    chunks (16 = two of 8); a vlm cache also holds the image; the last
+    decode step runs past the padded cache."""
+    prompt = 16 if cfg.ssm_state else PROMPT
+    return prompt, prompt + PAD_TO - PROMPT + cfg.vis_tokens
+
+
+def stub_inputs(cfg, batch: int, rng) -> dict:
+    """Seeded non-zero ``patches`` / ``frames`` (numpy float32)."""
+    n = {"vlm": ("patches", cfg.vis_tokens),
+         "encdec": ("frames", cfg.enc_frames)}.get(cfg.family)
+    if n is None:
+        return {}
+    return {n[0]: rng.randn(batch, n[1], cfg.d_model).astype(np.float32)}
 
 
 def configs(arch, compute_dtype=None):
@@ -116,37 +134,46 @@ def test_decode_attention_matches_reference(g, pos, window):
 
 def serve_both(arch, compute_dtype):
     """Prefill (``pad_to``) and ``DECODE_STEPS`` decode steps on both
-    packages from the same params and tokens; yields (label, reference
-    output, port output) for the logits and every cache leaf after each
-    call.  The last step runs past the padded cache (pos >= Smax)."""
+    packages from the same params, tokens and seeded ``patches`` /
+    ``frames``; yields (label, reference output, port output) for the
+    logits and every cache leaf after each call.  The last step runs past
+    the padded cache (pos >= Smax)."""
     jc, tc = configs(arch, compute_dtype)
     jm, tm = JModel(jc), build_model(tc)
     jp = jm.init(0)
     tp = carried(jp)
+    prompt, pad_to = lengths(tc)
     rng = np.random.RandomState(7)
-    toks = rng.randint(0, jc.vocab, (2, PROMPT)).astype(np.int32)
-    jl, jcache = jax.jit(lambda p, b: jm.prefill(p, b, pad_to=PAD_TO))(
-        jp, {"tokens": jnp.asarray(toks)})
-    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
-                            pad_to=PAD_TO)
+    batch = dict(stub_inputs(jc, 2, rng), tokens=rng.randint(
+        0, jc.vocab, (2, prompt)).astype(np.int32))
+    jl, jcache = jax.jit(lambda p, b: jm.prefill(p, b, pad_to=pad_to))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tcache = tm.prefill(tp, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()}, pad_to=pad_to)
     assert tuple(tl.shape) == (2, 1, jl.shape[-1])
-    assert tuple(tcache["k"].shape) == (tc.n_layers, 2, PAD_TO,
-                                        tc.n_kv_heads, tc.d_head)
+    assert tcache.keys() == jcache.keys()
+    leaves = sorted(k for k in jcache if k != "pos")
+    for k in leaves:
+        assert tuple(tcache[k].shape) == tuple(jcache[k].shape), k
+    if "k" in tcache:
+        assert tuple(tcache["k"].shape) == (tc.n_layers, 2, pad_to,
+                                            tc.n_kv_heads, tc.d_head)
     out = [("prefill logits", jl, tl)]
     # decode_step writes the port's cache in place: compare copies
     out += [(f"prefill cache {k}", jcache[k], tcache[k].clone())
-            for k in ("k", "v")]
-    assert int(tcache["pos"]) == int(jcache["pos"]) == PROMPT
+            for k in leaves]
+    pos = prompt + tc.vis_tokens
+    assert int(tcache["pos"]) == int(jcache["pos"]) == pos
     assert tcache["pos"].dtype == torch.int32 and tcache["pos"].dim() == 0
     dec = jax.jit(jm.decode_step)
     for step in range(DECODE_STEPS):
         nt = rng.randint(0, jc.vocab, (2,)).astype(np.int32)
         jl, jcache = dec(jp, jcache, jnp.asarray(nt))
         tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(nt))
-        assert int(tcache["pos"]) == int(jcache["pos"]) == PROMPT + step + 1
+        assert int(tcache["pos"]) == int(jcache["pos"]) == pos + step + 1
         out.append((f"decode {step} logits", jl, tl))
         out += [(f"decode {step} cache {k}", jcache[k], tcache[k].clone())
-                for k in ("k", "v")]
+                for k in leaves]
     return out
 
 
@@ -163,7 +190,8 @@ def test_prefill_decode_bfloat16(arch):
     assert tget(arch).compute_dtype == "bfloat16"
     for label, want, got in serve_both(arch, None):
         if "cache" in label:
-            assert got.dtype == torch.bfloat16, label
+            assert got.dtype == (torch.float32 if "state" in label
+                                 else torch.bfloat16), label
         err = rel_l2(got, want)
         assert err < BF16_REL_L2, (label, err)
 
@@ -193,10 +221,7 @@ def test_prefill_then_decode_equals_longer_prefill(compute_dtype):
 
 
 @pytest.mark.parametrize("arch,error,match", [
-    ("vit-base", ValueError, "vit"),
-    ("zamba2-1.2b", NotImplementedError, "item 4"),
-    ("seamless-m4t-large-v2", NotImplementedError, "item 4"),
-    ("paligemma-3b", NotImplementedError, "item 4")])
+    ("vit-base", ValueError, "vit")])
 def test_serving_families_checked_first(arch, error, match):
     m = build_model(tget(arch).reduced())
     with pytest.raises(error, match=match):
@@ -375,11 +400,16 @@ def assert_digest_equal(got: dict, want: dict) -> None:
     assert cs.no_nan(got) == cs.no_nan(want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-moe-16b",
+                                  "zamba2-1.2b", "paligemma-3b",
+                                  "seamless-m4t-large-v2"])
 def test_engine_matches_reference_float32(arch):
+    """The vlm and encdec engines send zero ``patches`` / ``frames`` on
+    both sides; an ssm trunk takes whole chunks (prompt_len 16)."""
+    prompt = lengths(tget(arch).reduced())[0]
     (jeng, jdone, jl), (teng, tdone, tl) = both_engines(
-        arch, 5, 4, [6, 2, 3, 1, 4], batch_size=2, prompt_len=12,
-        max_len=24)
+        arch, 5, 4, [6, 2, 3, 1, 4], batch_size=2, prompt_len=prompt,
+        max_len=prompt + 12)
     why = first_divergence(jl, tl)
     assert [r.rid for r in tdone] == [r.rid for r in jdone], why
     assert [r.out_tokens for r in tdone] == [r.out_tokens for r in jdone], \

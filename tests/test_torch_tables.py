@@ -176,9 +176,8 @@ def test_composite_and_unported_paths_raise_not_implemented():
     """Composite registration is ported: two_level lowers to a chain, auto
     resolves, a plan the zoo lacks raises the reference's ValueError.  The
     tick surface is ported (``tick_fn`` and ``device_api`` return their
-    objects); the paths still to port (the hybrid model family here;
-    ``TrainController`` is ported) raise NotImplementedError naming their
-    ROADMAP.md item."""
+    objects); so is every model family (the hybrid family here builds its
+    shared block)."""
     from repro_torch.configs import get_config
     from repro_torch.core import CollKind, OcclConfig, OcclRuntime
     from repro_torch.models import build_model
@@ -195,5 +194,7 @@ def test_composite_and_unported_paths_raise_not_implemented():
     assert chains[head] == [head, head + 1, head + 2]
     assert auto not in chains                       # flat ring
     assert callable(rt.tick_fn()) and not rt.device_api().stale
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("zamba2-1.2b").reduced()).init(0, "cpu")
+    cfg = get_config("zamba2-1.2b").reduced()
+    params = build_model(cfg).init(0, "cpu")
+    assert tuple(params["shared"]["proj"].shape) == (2 * cfg.d_model,
+                                                     cfg.d_model)

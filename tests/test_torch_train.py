@@ -213,17 +213,29 @@ def test_record_dense_cell_counts():
 
 
 def test_chip_smoke_vit_cell_matches_the_sync_it_builds():
-    """The burst shape and heap ``chip_smoke.py`` checks the kernel at are
-    the ViT cell's runtime (built on the meta template, no allocation)."""
+    """The ViT cell's runtime at its depth cut (``VIT_RUNTIME``), and the
+    burst shape and heap ``chip_smoke.py`` checks the kernel at: the
+    full-depth cell's (``VIT_FULL_RUNTIME``).  Built on meta templates, no
+    allocation."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.state import init_state
+
     cs = _smoke()
     v = cs.VIT
-    sync = OcclGradSync(templates("vit-base", False)[1], v["dp"],
-                        bucket_elems=v["bucket_elems"],
-                        slice_elems=v["slice_elems"],
-                        burst_slices=v["burst_slices"], device="cpu")
-    c = sync.occl.cfg
-    assert (c.n_ranks, c.max_colls, c.conn_depth, c.heap_elems) \
-        == tuple(cs.VIT_RUNTIME.values())
+    cut = dataclasses.replace(get_config("vit-base"), n_layers=v["n_layers"])
+    for tmpl, want in ((init_state(cut, device="meta").params,
+                        cs.VIT_RUNTIME),
+                       (templates("vit-base", False)[1],
+                        cs.VIT_FULL_RUNTIME)):
+        sync = OcclGradSync(tmpl, v["dp"], bucket_elems=v["bucket_elems"],
+                            slice_elems=v["slice_elems"],
+                            burst_slices=v["burst_slices"], device="cpu")
+        c = sync.occl.cfg
+        assert (c.n_ranks, c.max_colls, c.conn_depth, c.heap_elems) \
+            == tuple(want.values())
+    assert len(sync.buckets) == 9 and v["n_layers"] == 4
     assert cs.BURST_SHAPES[-1] == (
         "vit", c.n_ranks, c.max_comms, c.burst_slices, c.slice_elems,
         c.max_colls, c.conn_depth, c.heap_elems)
