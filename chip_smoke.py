@@ -14,7 +14,7 @@ Phases (each raises on failure; the script then exits non-zero):
    8x1x1 at slice 64, flat 8x1x8, composite 16x{1,2}x8 and the ViT
    training cell's 4x1x8 at 1024, the record's dense grad-sync cell's
    4x1x8 at 512, the serving cell's 4x1x1 at 64, the MoE cells' 4x1x1 at
-   128 and at 8192) in
+   128 and at 8192, the mesh backend's per-rank 1x1x8 at 1024) in
    float32 and bfloat16, over seeded descriptor sets with wrapped slots,
    partial bursts, ranks not live, invalid lanes, overlapping windows of two
    lanes, windows clamped at both ends, odd window offsets, a padded
@@ -47,6 +47,25 @@ Phases (each raises on failure; the script then exits non-zero):
       rank registered as ``"ring"`` and as ``"two_level"``, 2 iterations
       each, and ``"two_level"`` again with conn_depth 64;
    outputs checked against a float64 numpy sum (rtol/atol 1e-5);
+   d. the mesh backend (one device per rank; here a mesh of 8 x ``cuda``,
+      each rank's state and scheduler on it, the fused per-ring-group
+      exchange, the ranks on side streams of one CUDA graph): the
+      reference's own mesh workloads (``tests/test_meshbackend.py``'s
+      adversarial orders, two-lane bursts plus a bfloat16 all-gather, and
+      chained two-level all-reduces; ``tests/test_daemon_fastpath.py``'s
+      packed vs unpacked bfloat16 exchange) with the reference mesh's
+      supersteps, preempts and sharded staging flushes (``MESH_REF``),
+      then the real-size cell (R=8, slice 1024, K=32, B=8, two 2^20 f32
+      all-reduces per rank in opposite orders, one iteration, checked
+      against a float64 sum), wall ms per superstep and the elapsed time
+      between CUDA events recorded around the drive; then the four
+      workloads again on a mesh over two devices, 4 x ``cuda`` + 4 x
+      ``cpu`` (run eagerly, every exchange and vote copying between the
+      card and the host; the CPU ranks take ``fused_burst``'s plain
+      version); every run's outputs bit-equal to the sim backend's on the
+      card (its own path, "mesh twin (sim)", run first) with every counter
+      equal, and the exchange's permutes per superstep 2 / 2 / 3 / 2 (f32,
+      bf16 packed, bf16 unpacked, f16 packed);
 5. the record's structural counts (``BENCH_collectives.json``): hierarchy
    flat 31 / two_level 15 and under skew 248 / 120; all-to-all flat 272 /
    two_level 100 and the adversarial a2a x all-reduce mix in 284; the
@@ -181,6 +200,11 @@ REAL = dict(n_ranks=8, max_colls=2, max_comms=1, slice_elems=1024,
             conn_depth=32, burst_slices=8, heap_elems=1 << 24)
 REAL_BUCKET = 1 << 22
 ADV_ITERS, REAL_ITERS = 3, 2
+# Phase 4d's real-size mesh cell: the flat cell's shape (R=8, slice 1024,
+# K=32, B=8) with buckets of 2^20 (the flat cell's 2^22 cut to fit the
+# time limit), one iteration.
+MESH_BUCKET = 1 << 20
+MESH_CELL = dict(REAL, heap_elems=1 << 22)
 # Composite real size: two 8-GPU nodes, inter-node lanes slower than NVLink.
 COMP = dict(n_ranks=16, max_colls=4, max_comms=2, slice_elems=1024,
             conn_depth=32, burst_slices=8, heap_elems=1 << 24,
@@ -468,6 +492,10 @@ BURST_SHAPES = (
      ADV["max_colls"], ADV["conn_depth"], ADV["heap_elems"]),
     ("flat", REAL["n_ranks"], 1, REAL["burst_slices"], REAL["slice_elems"],
      REAL["max_colls"], REAL["conn_depth"], REAL["heap_elems"]),
+    # The mesh backend: each rank's burst on its own (R = 1).
+    ("mesh", 1, 1, MESH_CELL["burst_slices"], MESH_CELL["slice_elems"],
+     MESH_CELL["max_colls"], MESH_CELL["conn_depth"],
+     MESH_CELL["heap_elems"]),
     *((f"composite {a}", COMP["n_ranks"], lanes, COMP["burst_slices"],
        COMP["slice_elems"], COMP["max_colls"], COMP["conn_depth"],
        COMP["heap_elems"]) for a, lanes in COMP_LANES.items()),
@@ -960,6 +988,333 @@ def phase_composite(device, card: str, fit_model) -> dict:
         del rt
         free_card()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the mesh backend (one device per rank)
+# ---------------------------------------------------------------------------
+#
+# The reference's own mesh workloads (tests/test_meshbackend.py,
+# tests/test_daemon_fastpath.py), each a function of ``(core, make_rt)``:
+# ``make_rt(cfg_kwargs)`` builds a runtime of ``core`` (the port's on a
+# mesh or on the sim backend, or the reference's on its shard_map mesh),
+# and the function returns ``({tag: runtime}, {key: output})`` after
+# checking the outputs as the reference's test does.
+
+def mesh_adversarial(core, make_rt):
+    """tests/test_meshbackend.py: three collectives on two rings, in
+    adversarial per-rank orders."""
+    rt = make_rt(dict(n_ranks=8, max_colls=8, max_comms=2, slice_elems=8,
+                      conn_depth=3, heap_elems=1 << 13))
+    world = rt.communicator(list(range(8)))
+    evens = rt.communicator([0, 2, 4, 6])
+    a = rt.register(core.CollKind.ALL_REDUCE, world, n_elems=96)
+    b = rt.register(core.CollKind.REDUCE_SCATTER, world, n_elems=64)
+    c = rt.register(core.CollKind.ALL_REDUCE, evens, n_elems=24)
+    rng = np.random.RandomState(0)
+    xa = [rng.randn(96).astype(np.float32) for _ in range(8)]
+    xb = [rng.randn(64).astype(np.float32) for _ in range(8)]
+    xc = {r: rng.randn(24).astype(np.float32) for r in evens.members}
+    for r in range(8):
+        rt.write_input(r, a, xa[r])
+        rt.write_input(r, b, xb[r])
+        order = [a, b] if r % 2 == 0 else [b, a]
+        if r in evens.members:
+            rt.write_input(r, c, xc[r])
+            order.insert(r % 3 % 2, c)
+        for cid in order:
+            rt.submit(r, cid)
+    rt.drive()
+    outs = {}
+    for r in range(8):
+        outs[(r, a)] = rt.read_output(r, a)
+        outs[(r, b)] = rt.read_output(r, b)
+        np.testing.assert_allclose(outs[(r, a)], sum(xa), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(outs[(r, b)], sum(xb)[r * 8:(r + 1) * 8],
+                                   rtol=1e-4, atol=1e-6)
+    for r in evens.members:
+        outs[(r, c)] = rt.read_output(r, c)
+        np.testing.assert_allclose(outs[(r, c)], sum(xc.values()),
+                                   rtol=1e-4, atol=1e-6)
+    return {"adversarial": rt}, outs
+
+
+def mesh_burst(core, make_rt):
+    """tests/test_meshbackend.py: bursts of 4 slices on two lanes (f32),
+    then an all-gather on a bfloat16 heap (the packed exchange) whose
+    all-ranks staged submits take the sharded flush on a mesh."""
+    rt = make_rt(dict(n_ranks=8, max_colls=8, max_comms=2, slice_elems=8,
+                      conn_depth=8, burst_slices=4, heap_elems=1 << 13))
+    world = rt.communicator(list(range(8)))
+    evens = rt.communicator([0, 2, 4, 6])
+    a = rt.register(core.CollKind.ALL_REDUCE, world, n_elems=96)
+    c = rt.register(core.CollKind.ALL_GATHER, evens, n_elems=32)
+    rng = np.random.RandomState(0)
+    xa = [rng.randn(96).astype(np.float32) for _ in range(8)]
+    xc = {r: rng.randn(8).astype(np.float32) for r in evens.members}
+    for r in range(8):
+        rt.write_input(r, a, xa[r])
+        if r in evens.members:
+            rt.write_input(r, c, xc[r])
+            rt.submit(r, c)
+        rt.submit(r, a)
+    rt.drive()
+    outs = {}
+    want = np.concatenate([xc[r] for r in evens.members])
+    for r in range(8):
+        outs[("f32", r, a)] = rt.read_output(r, a)
+        np.testing.assert_allclose(outs[("f32", r, a)], sum(xa), rtol=1e-4,
+                                   atol=1e-6)
+    for r in evens.members:
+        outs[("f32", r, c)] = rt.read_output(r, c)
+        np.testing.assert_allclose(outs[("f32", r, c)], want, rtol=1e-4,
+                                   atol=1e-6)
+    rt16 = make_rt(dict(n_ranks=8, max_colls=2, max_comms=1, slice_elems=8,
+                        conn_depth=6, burst_slices=4, dtype="bfloat16",
+                        heap_elems=1 << 12))
+    world16 = rt16.communicator(list(range(8)))
+    g = rt16.register(core.CollKind.ALL_GATHER, world16, n_elems=64)
+    xg = [rng.randn(8).astype(np.float32) for _ in range(8)]
+    for r in range(8):
+        rt16.submit(r, g, data=xg[r])
+    rt16.drive()
+    wg = np.concatenate(xg)
+    for r in range(8):
+        outs[("bf16", r, g)] = np.asarray(rt16.read_output(r, g), np.float32)
+        np.testing.assert_allclose(outs[("bf16", r, g)], wg, rtol=2e-2,
+                                   atol=2e-2)
+    return {"f32": rt, "bf16": rt16}, outs
+
+
+def mesh_packed(core, make_rt):
+    """tests/test_daemon_fastpath.py: a bfloat16 all-reduce and all-gather
+    in opposite orders, over the packed and the unpacked exchange; the two
+    give the same bits."""
+    rts, outs = {}, {}
+    for packed in (False, True):
+        rt = make_rt(dict(n_ranks=8, max_colls=4, max_comms=1, slice_elems=8,
+                          conn_depth=12, burst_slices=4, dtype="bfloat16",
+                          heap_elems=1 << 13, packed_16bit=packed))
+        world = rt.communicator(list(range(8)))
+        a = rt.register(core.CollKind.ALL_REDUCE, world, n_elems=96)
+        g = rt.register(core.CollKind.ALL_GATHER, world, n_elems=64)
+        rng = np.random.RandomState(0)
+        xa = [rng.randn(96).astype(np.float32) for _ in range(8)]
+        xg = [rng.randn(8).astype(np.float32) for _ in range(8)]
+        for r in range(8):
+            for cid in ([a, g] if r % 2 == 0 else [g, a]):
+                rt.submit(r, cid, data=(xa[r] if cid == a else xg[r]))
+        rt.drive()
+        tag = "packed" if packed else "unpacked"
+        rts[tag] = rt
+        for r in range(8):
+            for cid in (a, g):
+                outs[(tag, r, cid)] = np.asarray(rt.read_output(r, cid),
+                                                 np.float32)
+    for key, v in outs.items():
+        if key[0] == "packed":
+            assert v.tobytes() == outs[("unpacked",) + key[1:]].tobytes(), key
+    return rts, outs
+
+
+def mesh_chained(core, make_rt):
+    """tests/test_meshbackend.py: two two-level all-reduce chains on the
+    derived intra / inter lanes, submitted in conflicting orders."""
+    rt = make_rt(dict(n_ranks=8, max_colls=8, max_comms=3, slice_elems=8,
+                      conn_depth=4, heap_elems=1 << 13,
+                      superstep_budget=1 << 14))
+    world = rt.communicator(list(range(8)))
+    a = rt.register(core.CollKind.ALL_REDUCE, world, n_elems=96,
+                    algo="two_level", hierarchy=(2, 4))
+    b = rt.register(core.CollKind.ALL_REDUCE, world, n_elems=56,
+                    algo="two_level", hierarchy=(2, 4))
+    rng = np.random.RandomState(0)
+    xa = [rng.randn(96).astype(np.float32) for _ in range(8)]
+    xb = [rng.randn(56).astype(np.float32) for _ in range(8)]
+    for r in range(8):
+        order = [(a, xa), (b, xb)] if r % 2 == 0 else [(b, xb), (a, xa)]
+        for cid, xs in order:
+            rt.submit(r, cid, data=xs[r])
+    rt.drive(max_launches=128)
+    outs = {}
+    for r in range(8):
+        outs[(r, a)] = rt.read_output(r, a)
+        outs[(r, b)] = rt.read_output(r, b)
+        np.testing.assert_allclose(outs[(r, a)], sum(xa), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(outs[(r, b)], sum(xb), rtol=1e-4,
+                                   atol=1e-5)
+    st = rt.stats()
+    chain = st["chains"][a]
+    assert (st["stage_completions"][:, chain] >= 1).all(), st["chains"]
+    assert (st["completed"][:, chain[-1]] == 1).all()
+    return {"chained": rt}, outs
+
+
+# The exchange's permutes per superstep (R=8, B=4, slice 64), as
+# BENCH_collectives.json "mesh" "ppermutes_per_superstep" records them.
+MESH_PERMUTE_CFGS = {"float32": ("float32", True),
+                     "bfloat16 packed": ("bfloat16", True),
+                     "bfloat16 unpacked": ("bfloat16", False),
+                     "float16 packed": ("float16", True)}
+MESH_PERMUTES = {"float32": 2, "bfloat16 packed": 2, "bfloat16 unpacked": 3,
+                 "float16 packed": 2}
+MESH_WORKLOADS = {"adversarial": mesh_adversarial, "burst": mesh_burst,
+                  "packed": mesh_packed, "chained": mesh_chained}
+# Counters held equal between the port's mesh, its sim and the reference's
+# mesh (the staging flush counts included).
+MESH_COUNTERS = ("supersteps", "preempts", "stall_slices",
+                 "stage_completions", "completed", "slices_moved",
+                 "rtc_events", "cq_count", "staging_sharded_flushes")
+# The reference's mesh on these workloads, per runtime: (supersteps,
+# preempts, staging_sharded_flushes), from its shard_map daemon on 8 XLA
+# CPU devices (tests/test_torch_mesh.py holds the port to that run).
+MESH_REF = {"adversarial": {"adversarial": (60, 4, 0)},
+            "burst": {"f32": (19, 0, 0), "bf16": (8, 0, 1)},
+            "packed": {"unpacked": (35, 4, 1), "packed": (35, 4, 1)},
+            "chained": {"chained": (63, 4, 0)}}
+
+
+def mesh_counts(rts: dict) -> dict:
+    """{tag: {counter: array or int}} of a workload's runtimes."""
+    out = {}
+    for tag, rt in rts.items():
+        st = rt.stats()
+        out[tag] = {k: np.asarray(st[k]) for k in MESH_COUNTERS}
+    return out
+
+
+def mesh_summary(counts: dict) -> dict:
+    """{tag: (supersteps, preempts, sharded flushes)}."""
+    return {tag: (int(c["supersteps"].max()), int(c["preempts"].sum()),
+                  int(c["staging_sharded_flushes"]))
+            for tag, c in counts.items()}
+
+
+def mesh_maker(core, device, mesh=None):
+    """``make_rt`` for the port: the mesh backend over ``mesh`` (one device
+    per rank), or with none the sim backend on ``device``."""
+    def make(kw):
+        cfg = core.OcclConfig(**kw)
+        if mesh is not None:
+            return core.OcclRuntime(cfg, mesh=mesh)
+        return core.OcclRuntime(cfg, device=device)
+    return make
+
+
+def mesh_real(core, make_rt, card: str, tag: str) -> dict:
+    """The real-size cell: two MESH_BUCKET all-reduces per rank in opposite
+    orders on odd and even ranks, one iteration; wall ms per superstep and
+    the elapsed ms per superstep between CUDA events recorded around the
+    drive (host-synchronised on both sides, so it tracks the wall time and
+    says nothing of how busy the card is), the outputs, counts."""
+    import torch
+
+    R = MESH_CELL["n_ranks"]
+    rt = make_rt(MESH_CELL)
+    world = rt.communicator(list(range(R)))
+    ids = [rt.register(core.CollKind.ALL_REDUCE, world, n_elems=MESH_BUCKET)
+           for _ in range(2)]
+    rng = np.random.default_rng(2020)
+    xs = [rng.standard_normal((R, MESH_BUCKET), dtype=np.float32)
+          for _ in ids]
+    for r in range(R):
+        for b in ([0, 1] if r % 2 == 0 else [1, 0]):
+            rt.submit(r, ids[b], data=xs[b][r])
+    cuda = torch.cuda.is_available() and rt.device.type == "cuda"
+    if cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+    t0 = time.perf_counter()
+    rt.drive()
+    if cuda:
+        end.record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    event_ms = start.elapsed_time(end) if cuda else float("nan")
+    for b, cid in enumerate(ids):
+        check_sum(rt, cid, xs[b], R)
+    outs = rt.read_outputs_bulk([(r, cid) for cid in ids for r in range(R)])
+    st = rt.stats()
+    steps = int(st["supersteps"].max())
+    res = {"supersteps": steps, "preempts": int(st["preempts"].sum()),
+           "wall_s": wall, "wall_ms_per_superstep": wall * 1e3 / steps,
+           "event_ms_per_superstep": event_ms / steps,
+           "launches": rt.launches,
+           "counts": mesh_counts({"real": rt}), "outputs": outs}
+    print(f"[mesh] real size on the {tag}: R={R}, 2 x {MESH_BUCKET} f32 "
+          f"per rank, {steps} supersteps, {res['preempts']} preempts, "
+          f"{wall:.3f} s wall, {res['wall_ms_per_superstep']:.4f} ms wall "
+          f"and {res['event_ms_per_superstep']:.4f} ms between CUDA events "
+          f"around the drive per superstep [{card}]")
+    return res
+
+
+def mesh_runs(device, card: str, mesh=None, real: bool = True) -> dict:
+    """Phase 4d's runs on one backend (the mesh over ``mesh``, else the
+    sim on ``device``): the four workloads and, with ``real``, the
+    real-size cell."""
+    from repro_torch import core
+
+    devs = sorted({str(d) for d in mesh or ()})
+    tag = f"mesh over {devs}" if mesh is not None else "sim"
+    make = mesh_maker(core, device, mesh)
+    res = {}
+    for name, fn in MESH_WORKLOADS.items():
+        t0 = time.perf_counter()
+        rts, outs = fn(core, make)
+        if mesh is not None:
+            # One card: one CUDA graph per chunk; several devices: eager.
+            multi = len(devs) > 1
+            graphed = devs == ["cuda"]
+            assert all(rt._ticker.multi == multi
+                       and rt._ticker.graphed == graphed
+                       for rt in rts.values()), name
+        res[name] = {"counts": mesh_counts(rts), "outputs": outs}
+        print(f"[mesh] {name} on the {tag}: (supersteps, preempts, sharded "
+              f"flushes) {mesh_summary(res[name]['counts'])}; outputs "
+              f"checked; {time.perf_counter() - t0:.2f} s [{card}]")
+        del rts
+    if real:
+        res["real"] = mesh_real(core, make, card, tag)
+    free_card()
+    return res
+
+
+def check_mesh(sim: dict, mesh: dict) -> dict:
+    """The mesh's runs (every one it made) bit-equal to the sim's, with
+    equal counters (the sharded flushes apart: the sim has none), and the
+    workloads' counts the reference's mesh's; then the exchange's permute
+    counts."""
+    from repro_torch.core.daemon import count_exchange_ppermutes
+    from repro_torch.core import OcclConfig
+
+    for name in mesh:
+        m, s = mesh[name], sim[name]
+        assert m["outputs"].keys() == s["outputs"].keys(), name
+        for k, v in m["outputs"].items():
+            assert (np.asarray(v, np.float32).tobytes()
+                    == np.asarray(s["outputs"][k], np.float32).tobytes()), (
+                name, k)
+        for tag, c in m["counts"].items():
+            for k in MESH_COUNTERS[:-1]:
+                assert np.array_equal(c[k], s["counts"][tag][k]), (
+                    name, tag, k)
+            assert int(s["counts"][tag]["staging_sharded_flushes"]) == 0
+        if name != "real":
+            assert mesh_summary(m["counts"]) == MESH_REF[name], (
+                name, mesh_summary(m["counts"]), MESH_REF[name])
+    perm = {label: count_exchange_ppermutes(OcclConfig(
+                n_ranks=8, max_comms=1, slice_elems=64, burst_slices=4,
+                dtype=dt, packed_16bit=packed))
+            for label, (dt, packed) in MESH_PERMUTE_CFGS.items()}
+    assert perm == MESH_PERMUTES, perm
+    print(f"[mesh] outputs bit-equal to the sim and every counter equal on "
+          f"{list(mesh)}; workload counts equal the reference mesh's "
+          f"{MESH_REF}; permutes per superstep {perm}")
+    return perm
 
 
 # ---------------------------------------------------------------------------
@@ -2910,6 +3265,29 @@ def main(argv=None) -> int:
                                                           model))
     assert paths["composite"][0] >= sum(
         r["supersteps"] for v in comp.values() for r in v["runs"])
+    free_card()
+    t0 = time.perf_counter()
+    twin = main_path("mesh twin (sim)", lambda: mesh_runs(device, card))
+    mesh = main_path("mesh", lambda: mesh_runs(
+        device, card, [device] * MESH_CELL["n_ranks"]))
+    check_mesh(twin, mesh)
+    assert paths["mesh"][0] >= MESH_CELL["n_ranks"] * mesh["real"][
+        "supersteps"], paths["mesh"]
+    mixed = [device] * 4 + [torch.device("cpu")] * 4
+    two = main_path("mesh over cuda and cpu", lambda: mesh_runs(
+        device, card, mixed, real=False))
+    check_mesh(twin, two)
+    # The four CUDA ranks launch fused_burst once each per superstep.
+    assert paths["mesh over cuda and cpu"][0] >= 4 * sum(
+        s for w in two.values() for s, _, _ in
+        mesh_summary(w["counts"]).values()), paths["mesh over cuda and cpu"]
+    print(f"[mesh] mesh real size: {mesh['real']['wall_ms_per_superstep']:.4f}"
+          f" ms wall / {mesh['real']['event_ms_per_superstep']:.4f} ms "
+          f"between CUDA events per superstep against the sim's "
+          f"{twin['real']['wall_ms_per_superstep']:.4f} / "
+          f"{twin['real']['event_ms_per_superstep']:.4f}; phase 4d "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del twin, mesh, two
     free_card()
     main_path("train record", lambda: phase_train_record(device))
     moe = main_path("moe record", lambda: phase_moe_record(device))

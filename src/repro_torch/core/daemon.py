@@ -1,10 +1,20 @@
-"""The daemon loop, sim backend: all ranks on one device (paper Sec. 3.1).
+"""The daemon loop (paper Sec. 3.1): the sim and the mesh backends.
 
-PyTorch port of the sim half of ``repro.core.daemon``.  Per-rank state
-carries the leading rank axis written out, the scheduler superstep runs over
-all ranks at once, and the connector fabric is a gather along each lane's
-ring permutation.  The mesh backend (one device per rank) is not ported yet
-(ROADMAP.md, "Modules to port", item 5).
+PyTorch port of ``repro.core.daemon``.  Both backends share the per-rank
+scheduler core:
+
+* **sim** — all ranks live on one device; per-rank state carries the leading
+  rank axis written out, the scheduler superstep runs over all ranks at
+  once, and the connector fabric is a gather along each lane's ring
+  permutation.
+
+* **mesh** — rank r's state lives on its own device ``mesh[r]`` (leaves
+  with a leading axis of 1) and rank r's superstep runs there on its slice
+  of the tables; the fabric is the reference's fused per-ring-group
+  exchange (:func:`_mesh_exchange`): per lane group, ONE permute of the
+  (coll, count) header ++ payload burst as i32 forward and ONE permute of
+  the credit header back.  One controller issues every rank's work, as the
+  reference's ``shard_map`` does (:class:`MeshTicker`).
 
 The loop terminates on: all work drained, the voluntary-quit threshold
 (consecutive fabric-wide no-progress supersteps, Sec. 3.1.3), or the hard
@@ -23,11 +33,13 @@ leaf is selected back — so ``supersteps``, ``launch_steps`` and every
 trajectory are bit-identical to the reference's, whatever ``k`` is (the
 batching invariance of the reference's tick contract).  The same property
 lets a launch on the card replay each full chunk as one CUDA graph
-(:class:`_ChunkRunner`): a superstep is several hundred small kernels, and
-issuing them one by one from the host would bound the daemon.
+(:class:`_ChunkRunner`): a superstep is several hundred small kernels (R
+times as many on the mesh), and issuing them one by one from the host
+would bound the daemon.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -43,7 +55,7 @@ from .scheduler import (
     rank_superstep,
     rebase_arrivals,
 )
-from .state import DaemonState
+from .state import DaemonState, ShardedState
 from .tables import StaticTables
 from ..kernels import fused_slice
 
@@ -116,6 +128,154 @@ def _sim_exchange(fwd_src: torch.Tensor, rev_src: torch.Tensor,
     )
 
 
+def _pack16_to_i32(pay: torch.Tensor, pad: int) -> torch.Tensor:
+    """View PAIRS of adjacent 16-bit payload elements as i32 lanes.
+
+    ``pay`` is [G, W] of a 2-byte dtype; an odd W is zero-padded by ``pad``
+    (0 or 1) so every element has a pair partner.  Returns [G, (W+pad)//2]
+    i32 — a pure bit view (no value is converted, so every bit pattern, a
+    signalling NaN's included, rides the wire as it is), concatenable with
+    the i32 (coll, count) header."""
+    bits = pay.view(torch.int16)
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((bits.shape[0], pad))], 1)
+    return bits.view(torch.int32)
+
+
+def _unpack16_from_i32(packed: torch.Tensor, dtype: torch.dtype,
+                       width: int) -> torch.Tensor:
+    """Inverse of :func:`_pack16_to_i32`: [G, P] i32 -> [G, width] 16-bit
+    (the pad element, if any, is sliced off)."""
+    return packed.view(torch.int16)[:, :width].view(dtype)
+
+
+def _ppermute(bufs: list, pairs) -> list:
+    """One logical ``ppermute`` over the mesh: for each ``(src, dst)`` pair
+    one copy of rank src's send buffer into rank dst's receive buffer; a
+    rank no pair sends to receives zeros (the reference's semantics).
+
+    A copy between two devices is a peer-to-peer copy that PyTorch orders
+    after the sender's current stream and before the receiver's (it records
+    an event on the one and makes the other wait on it; no host sync).  On
+    one device the receive buffer is the send buffer itself: nothing writes
+    either afterwards.  Counted in ``_ppermute.calls``."""
+    _ppermute.calls += 1
+    out = [None] * len(bufs)
+    for src, dst in pairs:
+        out[dst] = bufs[src].to(bufs[dst].device)
+    return [torch.zeros_like(b) if o is None else o
+            for b, o in zip(bufs, out)]
+
+
+_ppermute.calls = 0
+
+
+def _exchange_plan(t: StaticTables, devices) -> list:
+    """Per lane group, each rank's lane-index tensor on that rank's device
+    (built with the daemon: a captured body may copy nothing from the
+    host)."""
+    by_dev: dict = {}
+    plan = []
+    for lanes, _, _ in t.lane_groups:
+        idx = []
+        for d in devices:
+            key = (tuple(lanes), torch.device(d))
+            if key not in by_dev:
+                by_dev[key] = torch.as_tensor(lanes, dtype=torch.int64,
+                                              device=d)
+            idx.append(by_dev[key])
+        plan.append(idx)
+    return plan
+
+
+def _mesh_exchange(t: StaticTables, outboxes: list, plan=None) -> list:
+    """Deliver messages over the mesh fabric: ``outboxes[r]`` is rank r's
+    Mailbox (leaves [1, L, ...] on its device); returns the inboxes.
+
+    Lanes whose communicators share a ring permutation are FUSED: their
+    stacked traffic rides ONE permute per direction — forward, the (coll,
+    count) headers and the [B, SL] payload bursts of every lane of the
+    group in a single i32 buffer (a bit view for 32-bit heap dtypes; for
+    16-bit dtypes adjacent payload-element PAIRS viewed as i32 lanes per the
+    registration-time ``lane_group_pack16`` metadata, an odd row
+    zero-padded); back, one i32 credit-header permute.  With one ring that
+    is two permutes per superstep for 32-bit and 16-bit heaps alike; tables
+    built with ``cfg.packed_16bit=False`` send a 16-bit payload in a permute
+    of its own (three).  Lanes of no group receive zeros."""
+    ob0 = outboxes[0]
+    _, L, B, SL = ob0.fwd_payload.shape
+    dt = ob0.fwd_payload.dtype
+    wide = dt.itemsize == 4
+    pack16 = t.lane_group_pack16 if dt.itemsize == 2 else None
+    if plan is None:
+        plan = _exchange_plan(t, [ob.fwd_count.device for ob in outboxes])
+    got = [{f: torch.zeros_like(getattr(ob, f)) for f in Mailbox._fields}
+           for ob in outboxes]
+    for gi, (lanes, fwd_pairs, rev_pairs) in enumerate(t.lane_groups):
+        G, idx = len(lanes), plan[gi]
+        hdr = [torch.stack([ob.fwd_coll[0, g], ob.fwd_count[0, g]], 1)
+               for ob, g in zip(outboxes, idx)]
+        pay = [ob.fwd_payload[0, g].reshape(G, B * SL)
+               for ob, g in zip(outboxes, idx)]
+        if wide:
+            moved = _ppermute([torch.cat([h, p.view(torch.int32)], 1)
+                               for h, p in zip(hdr, pay)], fwd_pairs)
+            got_hdr = [m[:, :2] for m in moved]
+            got_pay = [m[:, 2:].view(dt) for m in moved]
+        elif pack16 is not None:
+            cols, pad = pack16[gi]
+            moved = _ppermute([torch.cat([h, _pack16_to_i32(p, pad)], 1)
+                               for h, p in zip(hdr, pay)], fwd_pairs)
+            got_hdr = [m[:, :2] for m in moved]
+            got_pay = [_unpack16_from_i32(m[:, 2:2 + cols], dt, B * SL)
+                       for m in moved]
+        else:
+            got_hdr = _ppermute(hdr, fwd_pairs)
+            got_pay = _ppermute(pay, fwd_pairs)
+        rgot = _ppermute([torch.stack([ob.rev_coll[0, g], ob.rev_count[0, g]],
+                                      1) for ob, g in zip(outboxes, idx)],
+                         rev_pairs)
+        for r, g in enumerate(idx):
+            mb = got[r]
+            mb["fwd_coll"][0, g] = got_hdr[r][:, 0]
+            mb["fwd_count"][0, g] = got_hdr[r][:, 1]
+            mb["fwd_payload"][0, g] = got_pay[r].reshape(G, B, SL)
+            mb["rev_coll"][0, g] = rgot[r][:, 0]
+            mb["rev_count"][0, g] = rgot[r][:, 1]
+    return [Mailbox(**mb) for mb in got]
+
+
+def count_exchange_ppermutes(cfg: OcclConfig, n_comms: int = 1) -> int:
+    """Drive one :func:`_mesh_exchange` and count its permutes.
+
+    The fusion structure depends only on the heap dtype, the packing
+    metadata and the lane grouping — not on the ring size — so it runs on
+    a one-rank mesh on the CPU (as the reference traces a one-device
+    mesh)."""
+    import dataclasses
+
+    from .primitives import Communicator
+    from .state import TORCH_DTYPES
+    from .tables import build_tables
+
+    cfg1 = dataclasses.replace(cfg, n_ranks=1,
+                               max_comms=max(cfg.max_comms, n_comms))
+    comms = [Communicator(comm_id=i, members=(0,), lane=i)
+             for i in range(n_comms)]
+    t = build_tables(cfg1, comms, [])
+    L, B, SL = cfg1.max_comms, cfg1.burst_slices, cfg1.slice_elems
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros((1,) + shape, dtype=dtype)
+
+    outbox = Mailbox(fwd_count=z(L), fwd_coll=z(L),
+                     fwd_payload=z(L, B, SL, dtype=TORCH_DTYPES[cfg1.dtype]),
+                     rev_count=z(L), rev_coll=z(L))
+    before = _ppermute.calls
+    _mesh_exchange(t, [outbox])
+    return _ppermute.calls - before
+
+
 def _drained(st: DaemonState) -> torch.Tensor:
     """[R]: all submitted work complete on each rank."""
     return ((st.sq_read >= st.sq_size)
@@ -134,9 +294,12 @@ class TickFlags(NamedTuple):
     drained: torch.Tensor  # [] bool
 
 
-def launch_prologue(st: DaemonState) -> DaemonState:
+def launch_prologue(st):
     """Launch prologue: fresh launch clock + epoch tick + bounded queue-age
-    rebase.  Does NOT touch SQ/CQ cursors (sqcq.HostQueues.pack_sq does)."""
+    rebase (of a DaemonState, or of each rank of a :class:`ShardedState`).
+    Does NOT touch SQ/CQ cursors (sqcq.HostQueues.pack_sq does)."""
+    if isinstance(st, ShardedState):
+        return ShardedState(launch_prologue(s) for s in st.shards)
     st = st._replace(
         global_live=torch.ones_like(st.global_live),
         no_prog=torch.zeros_like(st.no_prog),
@@ -283,72 +446,93 @@ def _run_bodies(body, sh, lt, fwd_src, rev_src, st, inbox, k: int):
     return st, inbox, steps
 
 
+def _flat(x) -> list:
+    """The tensors of a NamedTuple, or of a tuple of NamedTuples, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _flat(v)]
+
+
+def _rebuild(like, leaves):
+    """Inverse of :func:`_flat`: ``like``'s structure over ``leaves`` (an
+    iterator)."""
+    if isinstance(like, torch.Tensor):
+        return next(leaves)
+    vals = [_rebuild(v, leaves) for v in like]
+    return type(like)(*vals) if hasattr(like, "_fields") else tuple(vals)
+
+
 class _ChunkRunner:
-    """Runs ``chunk`` gated bodies at a time; on a CUDA device as ONE graph
+    """Runs ``chunk`` gated bodies at a time; on one CUDA device as ONE graph
     replay.
 
-    A superstep issues several hundred small kernels, so eager execution is
-    bound by the host's launch rate.  Every body is fixed-shape and free of
-    host syncs, so the first full chunk of a runtime runs eagerly (which
-    also warms every lazily built kernel and cached index tensor) and is
-    then captured into a CUDA graph over static input buffers; each later
-    full chunk copies the live leaves in, replays, and returns copies of the
-    graph-owned outputs (so no caller ever holds a graph-owned buffer).  The
-    heaps are the runtime's own tensors, updated in place: the graph reads
-    and writes them directly and a replay returns them as they are, so
-    they are neither cloned nor copied back.  A shorter tail chunk and CPU
-    tensors run eagerly.  Replay executes exactly the captured bodies, so
-    trajectories are bit-identical to eager execution.
+    ``bodies(st, inbox, k)`` runs k gated bodies and returns ``(state,
+    inbox, supersteps run)``; the state is a sim DaemonState or a tuple of a
+    mesh's per-rank DaemonStates (the inbox likewise).  A superstep issues
+    several hundred small kernels (R times as many on a mesh), so eager
+    execution is bound by the host's launch rate.  Every body is
+    fixed-shape and free of host syncs, so the first full chunk of a
+    runtime runs eagerly (which also warms every lazily built kernel and
+    cached index tensor) and is then captured into a CUDA graph over static
+    input buffers; each later full chunk copies the live leaves in,
+    replays, and returns copies of the graph-owned outputs (so no caller
+    ever holds a graph-owned buffer).  The heaps are the runtime's own
+    tensors, updated in place: the graph reads and writes them directly and
+    a replay returns them as they are, so they are neither cloned nor
+    copied back.  A shorter tail chunk runs eagerly, and so does
+    everything when ``graphed`` is false (CPU tensors, or a mesh over
+    several devices: a CUDA graph spans one device).  Replay executes
+    exactly the captured bodies, so trajectories are bit-identical to
+    eager execution.
 
     The ``fused_burst`` wrapper counts its launches while the chunk is
     captured; that count (the kernel launches the graph holds) is taken
     off the counter again, since the capture itself runs nothing, and
     added once per replay."""
 
-    def __init__(self, body, tables, chunk: int):
-        self.body, self.tables, self.chunk = body, tables, chunk
+    def __init__(self, bodies: Callable, chunk: int, graphed: bool):
+        self.bodies, self.chunk, self.graphed = bodies, chunk, graphed
         self.graph = None
 
-    def _eager(self, st, inbox, k):
-        return _run_bodies(self.body, *self.tables, st, inbox, k)
-
-    def __call__(self, st: DaemonState, inbox: Mailbox, k: int):
-        if k != self.chunk or st.heap_in.device.type != "cuda":
-            return self._eager(st, inbox, k)
+    def __call__(self, st, inbox, k: int):
+        if k != self.chunk or not self.graphed:
+            return self.bodies(st, inbox, k)
         if self.graph is None:
-            out = self._eager(st, inbox, k)
+            out = self.bodies(st, inbox, k)
             self._capture(*out[:2])
             return out
-        for dst, src in zip(self.static, (*st, *inbox)):
+        for dst, src in zip(self.static, _flat((st, inbox))):
             if dst is not src:
                 dst.copy_(src)
         self.graph.replay()
         fused_slice.fused_burst.launches += self.per_replay
         st_out, in_out, steps = self.out
-        return (DaemonState(*[self._own(t) for t in st_out]),
-                Mailbox(*[t.clone() for t in in_out]), steps.clone())
+        return (_rebuild(st, map(self._own, _flat(st_out))),
+                _rebuild(inbox, (t.clone() for t in _flat(in_out))),
+                steps.clone())
 
     def prime(self, st: DaemonState, inbox: Mailbox) -> None:
-        """Warm up and capture without advancing anything: the eager bodies
-        run on ``st`` marked not live, so their gated writes change no
-        heap element, and their outputs only shape the static buffers."""
-        if self.graph is None and st.heap_in.device.type == "cuda":
+        """Warm up and capture a sim chunk without advancing anything: the
+        eager bodies run on ``st`` marked not live, so their gated writes
+        change no heap element, and their outputs only shape the static
+        buffers."""
+        if self.graph is None and self.graphed:
             dead = st._replace(global_live=torch.zeros_like(st.global_live))
-            self._capture(*self._eager(dead, inbox, self.chunk)[:2])
+            self._capture(*self.bodies(dead, inbox, self.chunk)[:2])
 
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         return t if any(t is h for h in self.heaps) else t.clone()
 
-    def _capture(self, st: DaemonState, inbox: Mailbox) -> None:
-        self.heaps = (st.heap_in, st.heap_out)
-        st_in = DaemonState(*[self._own(t) for t in st])
-        in_in = Mailbox(*[t.clone() for t in inbox])
-        self.static = (*st_in, *in_in)
+    def _capture(self, st, inbox) -> None:
+        shards = (st,) if isinstance(st, DaemonState) else st
+        self.heaps = [h for s in shards for h in (s.heap_in, s.heap_out)]
+        st_in = _rebuild(st, map(self._own, _flat(st)))
+        in_in = _rebuild(inbox, (t.clone() for t in _flat(inbox)))
+        self.static = _flat((st_in, in_in))
         launches = fused_slice.fused_burst.launches
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.out = _run_bodies(self.body, *self.tables, st_in, in_in,
-                                   self.chunk)
+            self.out = self.bodies(st_in, in_in, self.chunk)
         self.per_replay = fused_slice.fused_burst.launches - launches
         fused_slice.fused_burst.launches = launches
         if self.per_replay <= 0:
@@ -382,20 +566,25 @@ class SimTicker:
     def __init__(self, cfg: OcclConfig, t: StaticTables, device):
         from .state import tables_from_numpy
 
+        self.device = torch.device(device)
         self.tables = tables_from_numpy(t, device)
         self.body = _sim_body_fn(cfg, _edge_plan(_relink_edges(t), device))
         self._runners: dict = {}
 
+    def _bodies(self, st: DaemonState, inbox: Mailbox, k: int):
+        return _run_bodies(self.body, *self.tables, st, inbox, k)
+
     def _runner(self, k: int) -> _ChunkRunner:
         run = self._runners.get(k)
         if run is None:
-            run = self._runners[k] = _ChunkRunner(self.body, self.tables, k)
+            run = self._runners[k] = _ChunkRunner(
+                self._bodies, k, self.device.type == "cuda")
         return run
 
     def run(self, st: DaemonState, inbox: Mailbox, k: int):
         """k gated bodies; returns (state, inbox, supersteps run)."""
         if k <= 0:
-            return _run_bodies(self.body, *self.tables, st, inbox, 0)
+            return self._bodies(st, inbox, 0)
         return self._runner(k)(st, inbox, k)
 
     def capture(self, st: DaemonState, k: int) -> None:
@@ -452,3 +641,194 @@ def build_sim_daemon(cfg: OcclConfig, ticker: SimTicker) -> Callable:
         return _tick_accounting(_store_mailbox(st, inbox), total, True)
 
     return daemon
+
+
+class MeshTicker:
+    """The mesh daemon's superstep machine (the reference's
+    ``build_mesh_tick`` under ``shard_map``, with one controller issuing
+    every rank's work): rank r's state lives on ``mesh[r]`` and its
+    superstep runs there on its own slice of the tables.
+
+    One gated body runs, for every rank, ``rank_superstep`` on that rank's
+    state, the deferred chain relink (the sim's static per-edge plan, on
+    the rank's heaps), then the fused exchange (:func:`_mesh_exchange`) and
+    the liveness vote: the reference's ``all_gather`` of every rank's
+    drained and quit flags, carried as small per-rank copies to each
+    voting device.  Every leaf is gated on the device-side ``global_live``
+    as in the sim, so the trajectory equals the sim's bit for bit.
+
+    When every rank's device is the same CUDA device, each full chunk of
+    all ranks' bodies and exchanges replays as ONE CUDA graph
+    (:class:`_ChunkRunner`), and each rank's step and gate run on a stream
+    of its own, forked from the issuing stream and joined back around the
+    exchange and the vote, so that the graph holds the ranks as parallel
+    branches.  A mesh over several devices runs eagerly (a CUDA graph spans
+    one device), each rank's work issued under its own device."""
+
+    def __init__(self, cfg: OcclConfig, t: StaticTables, mesh):
+        from .state import resolve_mesh, tables_from_numpy
+
+        self.cfg, self.t = cfg, t
+        self.devices = resolve_mesh(mesh, cfg.n_ranks)
+        per_dev: dict = {}
+        self.tables = []
+        for r, dev in enumerate(self.devices):
+            if dev not in per_dev:
+                sh, lt, _, _ = tables_from_numpy(t, dev)
+                per_dev[dev] = (sh, lt, _edge_plan(_relink_edges(t), dev))
+            sh, lt, plan = per_dev[dev]
+            self.tables.append(
+                (sh, LocalTables(*(a[r:r + 1] for a in lt)), plan))
+        self.xplan = _exchange_plan(t, self.devices)
+        self.vote_devices = tuple(per_dev)
+        first = self.devices[0]
+        self.graphed = first.type == "cuda" and len(per_dev) == 1
+        self.multi = len(per_dev) > 1
+        self.streams = ([torch.cuda.Stream(first) for _ in self.devices]
+                        if self.graphed else None)
+        self._runners: dict = {}
+
+    def _per_rank(self, fn) -> list:
+        """``fn(r)`` for every rank: under the rank's device on a mesh over
+        several devices; on one card forked onto the rank's side stream
+        and joined back, so that the ranks' small kernels may overlap (in
+        a captured graph the ranks are parallel branches)."""
+        if self.streams is None:
+            out = []
+            for r, dev in enumerate(self.devices):
+                with (torch.cuda.device(dev) if self.multi
+                      and dev.type == "cuda" else contextlib.nullcontext()):
+                    out.append(fn(r))
+            return out
+        cur = torch.cuda.current_stream(self.devices[0])
+        out = []
+        for r, side in enumerate(self.streams):
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out.append(fn(r))
+        for side in self.streams:
+            cur.wait_stream(side)
+        return out
+
+    def _body(self, shards: tuple, inboxes: tuple):
+        cfg = self.cfg
+
+        def step(r):
+            sh, lt, plan = self.tables[r]
+            st = shards[r]
+            live = st.global_live
+            new, outbox = rank_superstep(cfg, sh, lt, st, inboxes[r],
+                                         live=live, defer_relink=True)
+            if plan:
+                fired = (chain_relink_fired(sh, lt, st.stage_completions,
+                                            new.stage_completions)
+                         & live[:, None])
+                _apply_relink(plan, fired, new.heap_in, new.heap_out)
+            return new, outbox
+
+        news, outboxes = zip(*self._per_rank(step))
+        got = _mesh_exchange(self.t, list(outboxes), self.xplan)
+        drained = [_drained(n) for n in news]
+        stuck = [n.no_prog >= cfg.quit_threshold for n in news]
+        vote = {d: (torch.cat([x.to(d) for x in drained]).all()
+                    | torch.cat([x.to(d) for x in stuck]).all())
+                for d in self.vote_devices}
+
+        def gate(r):
+            st, new = shards[r], news[r]
+            over = new.launch_steps >= cfg.superstep_budget
+            new = new._replace(global_live=~(vote[self.devices[r]] | over))
+            return (_gate(st.global_live, new, st),
+                    _gate(st.global_live, got[r], inboxes[r]))
+
+        out_st, out_in = zip(*self._per_rank(gate))
+        return tuple(out_st), tuple(out_in)
+
+    def _bodies(self, shards: tuple, inboxes: tuple, k: int):
+        steps = torch.zeros((), dtype=torch.int32, device=self.devices[0])
+        for _ in range(k):
+            steps = steps + shards[0].global_live[0].to(torch.int32)
+            shards, inboxes = self._body(shards, inboxes)
+        return shards, inboxes, steps
+
+    def run(self, shards: tuple, inboxes: tuple, k: int):
+        """k gated bodies over every rank; returns (shards, inboxes,
+        supersteps run)."""
+        if k <= 0:
+            return self._bodies(shards, inboxes, 0)
+        run = self._runners.get(k)
+        if run is None:
+            run = self._runners[k] = _ChunkRunner(self._bodies, k,
+                                                  self.graphed)
+        return run(shards, inboxes, k)
+
+    def tick(self, st: ShardedState, k: int, barrier: bool):
+        """``tick(state, k) -> (state, TickFlags)``: up to ``k`` supersteps
+        of every rank, stamped into the barrier or the overlap split."""
+        shards, inboxes, steps = self.run(
+            st.shards, tuple(_load_mailbox(s) for s in st.shards), int(k))
+        return self.finish(shards, inboxes, steps, barrier)
+
+    def finish(self, shards: tuple, inboxes: tuple, steps: torch.Tensor,
+               barrier: bool):
+        """Store the in-flight mailboxes and stamp ``steps`` supersteps
+        into each rank's accounting; returns (ShardedState, TickFlags)."""
+        shards = tuple(
+            _tick_accounting(_store_mailbox(s, mb), steps.to(dev), barrier)
+            for s, mb, dev in zip(shards, inboxes, self.devices))
+        dev0 = self.devices[0]
+        flags = TickFlags(
+            steps=steps, live=shards[0].global_live[0],
+            drained=torch.cat([_drained(s).to(dev0) for s in shards]).all())
+        return ShardedState(shards), flags
+
+
+def build_mesh_tick(cfg: OcclConfig, t: StaticTables, mesh,
+                    barrier: bool = False) -> Callable:
+    """``tick(state, k) -> (state, TickFlags)`` over a mesh (one device per
+    rank; the state a :class:`ShardedState`): up to ``k`` supersteps of
+    every rank.  ``barrier`` is the accounting tag only."""
+    ticker = MeshTicker(cfg, t, mesh)
+    return lambda st, k: ticker.tick(st, k, barrier)
+
+
+def build_mesh_daemon(cfg: OcclConfig, ticker: MeshTicker) -> Callable:
+    """Daemon for the mesh backend on ``ticker``'s machine: a launch is the
+    prologue plus ONE barrier tick of up to ``superstep_budget + 1``
+    supersteps, run as gated chunks of ``TICK_CHUNK`` bodies (a CUDA graph
+    replay each on one card) with one host read of the live flag per
+    chunk."""
+    limit = cfg.superstep_budget + 1
+
+    def daemon(st: ShardedState) -> ShardedState:
+        shards = launch_prologue(st).shards
+        inboxes = tuple(_load_mailbox(s) for s in shards)
+        total = torch.zeros((), dtype=torch.int32, device=ticker.devices[0])
+        done = 0
+        while done < limit:
+            k = min(TICK_CHUNK, limit - done)
+            shards, inboxes, steps = ticker.run(shards, inboxes, k)
+            total = total + steps
+            done += k
+            if not bool(shards[0].global_live[0]):
+                break
+        return ticker.finish(shards, inboxes, total, True)[0]
+
+    return daemon
+
+
+def build_shardmap_daemon(cfg: OcclConfig, t: StaticTables, mesh,
+                          axis_name: str = "rank") -> Callable:
+    """Daemon over a mesh of devices, one per rank: state -> state (a
+    :class:`ShardedState`).  ``axis_name`` is kept for the reference's
+    signature; the port's mesh has one axis."""
+    return build_mesh_daemon(cfg, MeshTicker(cfg, t, mesh))
+
+
+def build_shardmap_tick(cfg: OcclConfig, t: StaticTables, mesh,
+                        axis_name: str = "rank",
+                        barrier: bool = False) -> Callable:
+    """``tick(state, k) -> (state, TickFlags)`` over a mesh of devices
+    (:func:`build_mesh_tick`; ``axis_name`` as in
+    :func:`build_shardmap_daemon`)."""
+    return build_mesh_tick(cfg, t, mesh, barrier)

@@ -1,16 +1,18 @@
 """OcclRuntime: the public host API of the deadlock-free collective library.
 
-PyTorch port of the sim path of ``repro.core.runtime``.  The integration
-contract is the paper's (Sec. 4): register communicators and collectives
-once, then ``submit`` from any rank in ANY order with an optional
-completion callback; ``drive`` launches the daemon event-driven and every
-submitted collective completes (assuming every member rank eventually
-submits it).
+PyTorch port of ``repro.core.runtime``.  The integration contract is the
+paper's (Sec. 4): register communicators and collectives once, then
+``submit`` from any rank in ANY order with an optional completion
+callback; ``drive`` launches the daemon event-driven and every submitted
+collective completes (assuming every member rank eventually submits it).
 
-All R ranks live on one device behind a leading rank axis (the sim
-backend).  ``OcclRuntime(cfg)`` runs on ``cuda`` and raises when no card is
-present; tests pass ``device="cpu"``, which runs the same code with the
-kernels' plain PyTorch versions.
+By default all R ranks live on one device behind a leading rank axis (the
+sim backend).  ``OcclRuntime(cfg)`` runs on ``cuda`` and raises when no card
+is present; tests pass ``device="cpu"``, which runs the same code with the
+kernels' plain PyTorch versions.  ``OcclRuntime(cfg, mesh=devices)`` is the
+mesh backend: one device per rank (``mesh[r]`` holds rank r's state and
+runs its scheduler), the fabric the reference's fused per-ring-group
+exchange; on one card every entry is ``cuda``, on the CPU ``cpu``.
 
 Registration accepts every algorithm the reference does: the flat
 ``"ring"``, the composite plans of :mod:`repro_torch.core.algos`
@@ -22,8 +24,8 @@ naming the holder, and :meth:`OcclRuntime.evict` shrinks the fabric by
 one rank (drain, rebuild for R-1, replay).  The tick surface is ported:
 ``tick_fn``, ``launch_once(tick_k=...)`` / ``drive(tick_k=...)`` and the
 in-step :meth:`OcclRuntime.device_api`, all on one superstep machine
-(:class:`~repro_torch.core.daemon.SimTicker`).  The mesh backend (ROADMAP.md,
-"Modules to port", item 5) is not ported yet.
+(:class:`~repro_torch.core.daemon.SimTicker`, or
+:class:`~repro_torch.core.daemon.MeshTicker` on a mesh).
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import torch
 
 from .algos import build_plan, default_hierarchy, select_algo
 from .config import OcclConfig, ReduceOp
-from .daemon import SimTicker, build_sim_daemon, launch_prologue
+from .daemon import (MeshTicker, SimTicker, build_mesh_daemon,
+                     build_sim_daemon, launch_prologue)
 from .errors import (ConnDepthWarning, DeadlockTimeout, EvictionError,
                      RegistrationClosed)
 from .handles import CollectiveHandle
@@ -51,19 +54,32 @@ from .primitives import (
 from . import recorder as _recorder
 from .sqcq import SQE, HostQueues
 from .staging import StagingEngine
-from .state import DaemonState, init_state, resolve_device
+from .state import DaemonState, init_state, resolve_device, resolve_mesh
 from .tables import StaticTables, build_tables
 
 
 class OcclRuntime:
-    def __init__(self, cfg: OcclConfig, device=None, cost_model=None):
+    def __init__(self, cfg: OcclConfig, device=None, cost_model=None,
+                 mesh=None, mesh_axis: str = "rank"):
         """``device``: where the daemon state lives — ``None`` means
         ``cuda`` (raises without a card); ``"cpu"`` runs the plain path.
         ``cost_model``: a costmodel.CostModel used by ``algo="auto"``
         registration; None loads the persisted calibration lazily
-        (BENCH_torch_calibration.json / REPRO_TORCH_CALIBRATION)."""
+        (BENCH_torch_calibration.json / REPRO_TORCH_CALIBRATION).
+        ``mesh``: a sequence of ``cfg.n_ranks`` devices — the mesh backend,
+        rank r's state and scheduler on ``mesh[r]`` (a CUDA entry raises
+        without a card; ``device`` must then be None).  ``mesh_axis`` is
+        kept for the reference's signature."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = None
+        self.mesh_axis = mesh_axis
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None:
+                raise ValueError("pass either device= or mesh=, not both")
+            self.mesh = resolve_mesh(mesh, cfg.n_ranks)
+            self.device = self.mesh[0]
         self._cost_model = cost_model
         self.comms: list[Communicator] = []
         self.specs: list[CollectiveSpec] = []
@@ -102,7 +118,7 @@ class OcclRuntime:
         self._tables: Optional[StaticTables] = None
         self._staging: Optional[StagingEngine] = None
         self._daemon = None
-        self._ticker: Optional[SimTicker] = None
+        self._ticker = None             # SimTicker, or MeshTicker on a mesh
         self._device_api = None
         self._state: Optional[DaemonState] = None
         self.queues = HostQueues(cfg)
@@ -418,14 +434,23 @@ class OcclRuntime:
                     "conn_depth >= 3 * burst_slices or auto_conn_depth=True.",
                     ConnDepthWarning, stacklevel=3)
             self._tables = build_tables(self.cfg, self.comms, self.specs)
-            self._ticker = SimTicker(self.cfg, self._tables, self.device)
-            self._daemon = build_sim_daemon(self.cfg, self._ticker)
+            if self.mesh is None:
+                self._ticker = SimTicker(self.cfg, self._tables, self.device)
+                self._daemon = build_sim_daemon(self.cfg, self._ticker)
+            else:
+                self._ticker = MeshTicker(self.cfg, self._tables, self.mesh)
+                self._daemon = build_mesh_daemon(self.cfg, self._ticker)
             self._staging = StagingEngine(self.cfg, self._tables)
-            self._state = init_state(self.cfg, self.device)
+            self._state = init_state(self.cfg, self.device,
+                                     sharding=self.mesh)
 
     @property
     def state(self) -> DaemonState:
+        """The daemon state, [R, ...]; on the mesh a gathered copy of every
+        rank's leaves (the view the reference's sharded array gives)."""
         self._ensure_built()
+        if self.mesh is not None:
+            return self._state.gather()
         return self._state
 
     # ------------------------------------------------------------------
@@ -433,10 +458,11 @@ class OcclRuntime:
     # ------------------------------------------------------------------
     def tick_fn(self, barrier: bool = True) -> Callable:
         """``tick(state, k) -> (state, TickFlags)`` over the full [R, ...]
-        state, on the runtime's superstep machine (its CUDA graphs
-        included).  ``barrier`` is the accounting tag (daemon.TickFlags).
-        Host-driven tick launches (``launch_once(tick_k=...)``) use the
-        barrier variant; in-step overlap goes through :meth:`device_api`."""
+        state (on the mesh the runtime's ShardedState, ``rt._state``), on
+        the runtime's superstep machine (its CUDA graphs included).
+        ``barrier`` is the accounting tag (daemon.TickFlags).  Host-driven
+        tick launches (``launch_once(tick_k=...)``) use the barrier
+        variant; in-step overlap goes through :meth:`device_api`."""
         self._ensure_built()
         ticker = self._ticker
         return lambda st, k: ticker.tick(st, k, bool(barrier))
@@ -444,6 +470,10 @@ class OcclRuntime:
     def device_api(self):
         """The in-step submission/tick/read API bound to this runtime's
         registrations (sim backend; core/device_api.py)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "device_api() is sim-backend only: in-step ticks thread one "
+                "[R, ...] state through the step")
         if self._device_api is None:
             from .device_api import DeviceApi
             self._device_api = DeviceApi(self)
@@ -843,13 +873,19 @@ class OcclRuntime:
         — read results BEFORE evicting (completed-but-unread outputs are
         dropped); the evicted rank's own outstanding submissions die
         with it; registration stays closed (the log replays, new
-        registrations are still rejected).
+        registrations are still rejected).  Sim backend only.
 
         On the card the old daemon's captured CUDA graph is dropped with
         the daemon (it reads the old heaps); the rebuilt daemon captures
         its own on its first full chunk, and the kernel launch counter
         counts replays only, so it stays exact across the re-capture.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "evict() is sim-backend only: shrinking a device mesh needs "
+                "a new mesh over the surviving devices — rebuild the "
+                "runtime on the shrunk mesh with the same registration "
+                "script instead")
         R = self.cfg.n_ranks
         if not 0 <= rank < R:
             raise EvictionError(f"rank {rank} outside [0, {R})")
@@ -1126,6 +1162,9 @@ class OcclRuntime:
             "launch_history": list(self.launch_history),
             "staging_flush_writes": self._staging.flush_writes,
             "staging_flush_bytes": self._staging.flush_bytes,
+            # Writes that took the mesh's sharded placement (one row copy
+            # per rank of a dense all-ranks block).
+            "staging_sharded_flushes": self._staging.sharded_flushes,
             "flight_recorder": _recorder.export_record(self._state,
                                                        self.cfg),
         }

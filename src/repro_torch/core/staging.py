@@ -20,6 +20,14 @@ regions coalesced — cached by the (rank, collective, base-offset) signature.
   Results are owned arrays.  A 16-bit float heap is read back widened to
   float32 for bfloat16 (numpy has no bfloat16 type) and as float16 for
   float16; the widening is exact.
+
+On the mesh backend (a :class:`~repro_torch.core.state.ShardedState`, rank
+r's heaps on its own device) every copy is per rank: a write ships each
+rank's rows host-to-device onto that rank's device only, and a read moves
+each rank's segments device-to-host from its own.  A write set that is one
+dense block covering every rank with one column window (the grad-sync /
+all-ranks-submit shape) is the reference's sharded flush: one row copy per
+rank, counted in ``sharded_flushes``.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from .config import OcclConfig
-from .state import DaemonState
+from .state import DaemonState, ShardedState
 from .tables import StaticTables
 
 # Host dtype a payload is packed in before its one host-to-device copy (the
@@ -98,6 +106,15 @@ def _copy_segments(heap: torch.Tensor, packed: torch.Tensor, stack,
         o += span
 
 
+def _to_host(parts: list) -> np.ndarray:
+    """Device segments -> one numpy array, in one device-to-host copy
+    (bfloat16 widened to float32, exactly)."""
+    t = parts[0] if len(parts) == 1 else torch.cat(parts)
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
+
+
 class StagingEngine:
     """Pack/unpack between logical user payloads and the padded heap
     layout, via precomputed index maps and per-signature plans."""
@@ -108,9 +125,11 @@ class StagingEngine:
         self._host_dtype = np.dtype(_HOST_DTYPES[cfg.dtype])
         self._write_plans: dict = {}
         self._read_plans: dict = {}
-        # Flush observability: writes and payload bytes shipped.
+        # Flush observability: writes and payload bytes shipped, and how
+        # many writes took the mesh's sharded placement.
         self.flush_writes = 0
         self.flush_bytes = 0
+        self.sharded_flushes = 0
 
     # -- writes ----------------------------------------------------------
     def _write_plan(self, sig) -> _WritePlan:
@@ -185,10 +204,35 @@ class StagingEngine:
             packed[~plan.mask] = 0
         self.flush_writes += 1
         self.flush_bytes += packed.nbytes
+        if isinstance(state, ShardedState):
+            self._write_sharded(state, packed, plan)
+            return state
         heap = state.heap_in
         dev_vals = torch.from_numpy(packed).to(heap.device).to(heap.dtype)
         _copy_segments(heap, dev_vals, plan.stack, plan.merged)
         return state
+
+    def _write_sharded(self, state: ShardedState, packed: np.ndarray,
+                       plan: _WritePlan) -> None:
+        """The mesh's write: each rank's rows go host-to-device onto that
+        rank's device only (one copy per rank), then into its heap."""
+        stack, merged = plan.stack, plan.merged
+        if (stack is not None and stack[0] == 0
+                and len(merged) == self.cfg.n_ranks):
+            self.sharded_flushes += 1
+        by_rank: dict = {}
+        o = 0
+        for rank, off, span in merged:
+            by_rank.setdefault(rank, []).append((o, off, span))
+            o += span
+        for rank, segs in by_rank.items():
+            heap = state.shards[rank].heap_in
+            rows = np.concatenate([packed[o:o + span] for o, _, span in segs])
+            vals = torch.from_numpy(rows).to(heap.device).to(heap.dtype)
+            i = 0
+            for _, off, span in segs:
+                heap[0, off:off + span].copy_(vals[i:i + span])
+                i += span
 
     # -- reads -----------------------------------------------------------
     def _read_plan(self, sig) -> _ReadPlan:
@@ -222,13 +266,18 @@ class StagingEngine:
             return {}
         plan = self._read_plan(
             tuple(sorted(keys, key=lambda k: (k[0], k[2]))))
-        heap = state.heap_out
-        parts = [heap[rank, off:off + span]
-                 for rank, off, span in plan.merged]
-        packed = parts[0] if len(parts) == 1 else torch.cat(parts)
-        if packed.dtype == torch.bfloat16:
-            packed = packed.to(torch.float32)
-        packed = packed.cpu().numpy()
+        if isinstance(state, ShardedState):
+            # Each rank's segments leave its own device in one copy.
+            by_rank: dict = {}
+            for rank, off, span in plan.merged:
+                by_rank.setdefault(rank, []).append(
+                    state.shards[rank].heap_out[0, off:off + span])
+            packed = np.concatenate([_to_host(parts)
+                                     for parts in by_rank.values()])
+        else:
+            heap = state.heap_out
+            packed = _to_host([heap[rank, off:off + span]
+                               for rank, off, span in plan.merged])
         out = {}
         for rank, cid, base in keys:
             pos, n, unpad = plan.slot_by_key[(rank, cid, base)]

@@ -2,9 +2,11 @@
 
 PyTorch port of ``repro.core.state``.  Every field is a fixed-shape tensor
 with the leading ``[R]`` rank axis written out (the sim backend: all ranks
-live on one device).  The same field names, shapes and dtypes as the
-reference's per-rank-stacked state, so :func:`state_from_numpy` /
-:func:`state_to_numpy` carry a state across the two packages leaf by leaf.
+live on one device); the mesh backend keeps one such state per rank, with
+a leading axis of 1, on that rank's device (:class:`ShardedState`).  The
+same field names, shapes and dtypes as the reference's per-rank-stacked
+state, so :func:`state_from_numpy` / :func:`state_to_numpy` carry a state
+across the two packages leaf by leaf.
 
 Connector representation (paper Fig. 3, Sec. 2.3): the connector between
 ring-neighbors ``r -> next(r)`` is a lock-free ring buffer of ``K`` slice
@@ -130,10 +132,34 @@ class DaemonState(NamedTuple):
     fr_kinds: torch.Tensor      # [R, N_EVENT_KINDS] i32
 
 
-def init_state(cfg: OcclConfig, device) -> DaemonState:
-    """Fresh [R, ...] state on ``device``."""
+def resolve_mesh(mesh, n_ranks: int) -> tuple:
+    """The mesh backend's devices: one per rank (``mesh[r]`` holds rank r's
+    state), each resolved as :func:`resolve_device` does (a CUDA entry
+    raises without a card) and given its index, so two entries naming one
+    card compare equal.  Raises on a length other than ``n_ranks``, as the
+    reference's ``shard_map`` does on a mesh axis of another size."""
+    devs = tuple(resolve_device(d) for d in mesh)
+    if len(devs) != n_ranks:
+        raise ValueError(f"mesh has {len(devs)} devices, cfg.n_ranks is "
+                         f"{n_ranks}: the mesh needs one device per rank")
+    return tuple(torch.device("cuda", torch.cuda.current_device())
+                 if d.type == "cuda" and d.index is None else d
+                 for d in devs)
+
+
+def init_state(cfg: OcclConfig, device=None, sharding=None):
+    """Fresh [R, ...] state on ``device``; with ``sharding`` (the mesh
+    backend: one device per rank, :func:`resolve_mesh`), a
+    :class:`ShardedState` whose rank r has its own leaves, with a leading
+    axis of 1, on ``sharding[r]``."""
+    if sharding is not None:
+        return ShardedState(_init_state(cfg, d, 1) for d in sharding)
+    return _init_state(cfg, device, cfg.n_ranks)
+
+
+def _init_state(cfg: OcclConfig, device, R: int) -> DaemonState:
     C, K, L = cfg.max_colls, cfg.conn_depth, cfg.max_comms
-    B, R = cfg.burst_slices, cfg.n_ranks
+    B = cfg.burst_slices
     SQL, CQL, H, SL = cfg.sq_len, cfg.cq_len, cfg.heap_elems, cfg.slice_elems
     dt = TORCH_DTYPES[cfg.dtype]
 
@@ -178,6 +204,39 @@ def init_state(cfg: OcclConfig, device) -> DaemonState:
         fr_count=z(()),
         fr_kinds=z((N_EVENT_KINDS,)),
     )
+
+
+class ShardedState:
+    """The mesh backend's state: rank r's :class:`DaemonState` on its own
+    device, every leaf with a leading axis of 1 (the reference's [R, ...]
+    arrays sharded along the mesh's rank axis).
+
+    Reading a field gathers the [R, ...] view onto the first rank's device
+    (what the reference's sharded array shows its readers: the SQ/CQ
+    reconcile, ``stats``, the recorder export); :meth:`gather` gathers every
+    leaf.  ``_replace`` takes [R, ...] tensors and places each rank's row on
+    that rank's device."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards):
+        self.shards = tuple(shards)
+
+    def __getattr__(self, name):
+        if name not in DaemonState._fields:
+            raise AttributeError(name)
+        dev = self.shards[0].global_live.device
+        return torch.cat([getattr(s, name).to(dev) for s in self.shards])
+
+    def gather(self) -> DaemonState:
+        """The whole state as one [R, ...] DaemonState (copies)."""
+        return DaemonState(*(getattr(self, f) for f in DaemonState._fields))
+
+    def _replace(self, **fields) -> "ShardedState":
+        return ShardedState(
+            s._replace(**{f: v[r:r + 1].to(getattr(s, f).device)
+                          for f, v in fields.items()})
+            for r, s in enumerate(self.shards))
 
 
 def _leaf_from_numpy(a: np.ndarray, dtype: torch.dtype,
