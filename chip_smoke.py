@@ -139,6 +139,19 @@ Phases (each raises on failure; the script then exits non-zero):
       controller's final one and runs 2 steps; ms per step, seconds per
       save (host copy, write, crc) and per restore, GB written, peak
       memory.  The path launches no kernel (asserted);
+   n. (runs after i, the card emptied on each side) the sharding layer:
+      Qwen3-0.6B's full-width train state laid out under
+      ``state_shardings`` on a 4x2 ("data", "model") placement mesh of 8 x
+      ``cuda`` positions, saved, and restored onto a 2x2 mesh
+      (``restore(..., shardings=)``, the elastic reshard): every gathered
+      leaf bit-equal to the state, a device set of 4 for every leaf, s per
+      save and per restore, GB written, bytes per position; the plan of
+      the state on a 1x1 planning mesh against the growth of
+      ``torch.cuda.memory_allocated()`` from ``init_state`` (within 512
+      bytes per leaf); and ``python -m repro_torch.launch.dryrun --arch
+      llama3-8b --cell decode_32k`` (the 16x16 planning mesh over a fake
+      process group, on this machine's CPU, run beside the card work):
+      per-device bytes, FLOPs, collectives, plan_s.  Launches no kernel;
    j. Mamba2-2.7B at full width and depth (3.13 G parameters, bf16
       compute) served as in h on the same 24 requests (the counts must
       be h's), its cache check a prefill of 256 tokens + 256 decode steps
@@ -2772,6 +2785,152 @@ def phase_train_default(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7n: the sharding layer on the card (runs after 7i)
+# ---------------------------------------------------------------------------
+
+# Qwen3-0.6B's full-width train state (as 7i builds it; 9.02 GB) laid out
+# under state_shardings on a 4x2 ("data", "model") placement mesh of 8 x
+# cuda, saved, and restored onto a 2x2 mesh (the reference's elastic
+# reshard, tests/test_meshbackend.py); the plan of the same state on a 1x1
+# planning mesh against the card's allocated bytes; the dry run of
+# llama3-8b decode_32k on the 16x16 planning mesh (a CPU subprocess, run
+# while the card phase goes on).
+SHARDED = dict(arch="qwen3-0.6b", save_mesh=(4, 2), restore_mesh=(2, 2),
+               dryrun=("llama3-8b", "decode_32k"))
+ALLOC_ROUNDING = 512      # bytes the caching allocator may add per leaf
+PLAN_STATE = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import state_plan_bytes
+from repro_torch.launch.mesh import make_planning_mesh
+print(state_plan_bytes(get_config(sys.argv[2]),
+                       make_planning_mesh((1, 1), ("data", "model"))))
+"""
+
+
+def position_bytes(tree) -> dict:
+    """Bytes each mesh position holds over a tree of sharded leaves."""
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for leaf in tree_leaves(tree):
+        for pos, n in leaf.nbytes_by_position().items():
+            out[pos] = out.get(pos, 0) + n
+    return out
+
+
+def sharded_restore(device, spec: dict, workdir: pathlib.Path) -> dict:
+    """Save the state from the save mesh, restore it onto the restore
+    mesh: bit-equal leaves, a device set of every restore position."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import device_put
+    from repro_torch.train.state import init_state, state_shardings
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    arch, cell = spec["dryrun"]
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--cell", cell], cwd=str(ROOT), env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    plan = subprocess.Popen(
+        [sys.executable, "-c", PLAN_STATE, str(ROOT / "src"), spec["arch"]],
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    cfg = get_config(spec["arch"])
+    res = {}
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    state = init_state(cfg, device=device)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state)
+    res["allocated_bytes"] = torch.cuda.memory_allocated() - m0
+    res["state_bytes"] = sum(a.numel() * a.element_size() for a in leaves)
+    res["leaves"] = len(leaves)
+
+    n = spec["save_mesh"][0] * spec["save_mesh"][1]
+    save_mesh = make_host_mesh(spec["save_mesh"][1], [device] * n)
+    t0 = time.perf_counter()
+    st8 = tree_unflatten(state, [device_put(a, s) for a, s in zip(
+        leaves, tree_leaves(state_shardings(save_mesh, cfg, state)))])
+    torch.cuda.synchronize()
+    res["put_s"] = time.perf_counter() - t0
+    res["save_position_bytes"] = sorted(position_bytes(st8).values())
+    workdir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=workdir, prefix="sharded_") as d:
+        t0 = time.perf_counter()
+        save(d, 0, st8)
+        res["save_s"] = time.perf_counter() - t0
+        res["bytes_written"] = sum(
+            f.stat().st_size for f in pathlib.Path(d).rglob("*.npy"))
+        del st8
+        n = spec["restore_mesh"][0] * spec["restore_mesh"][1]
+        mesh = make_host_mesh(spec["restore_mesh"][1], [device] * n)
+        t0 = time.perf_counter()
+        got, _ = restore(d, 0, state,
+                         shardings=state_shardings(mesh, cfg, state))
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+    restored = tree_leaves(got)
+    res["bit_equal"] = all(bit_equal(r.gather(), a)
+                           for r, a in zip(restored, leaves))
+    res["device_sets"] = sorted({len(r.sharding.device_set)
+                                 for r in restored})
+    res["restore_position_bytes"] = sorted(position_bytes(got).values())
+    del got, restored, state, leaves
+
+    out, err = plan.communicate(timeout=300)
+    assert plan.returncode == 0, err[-3000:]
+    res["plan_state_bytes"] = int(out.split()[-1])
+    out, err = dry.communicate(timeout=300)
+    assert dry.returncode == 0, err[-3000:]
+    res["dryrun"] = json.loads(out[out.index("{"):])
+    assert res["bit_equal"], res
+    assert res["device_sets"] == [n], res
+    assert 0 <= res["allocated_bytes"] - res["plan_state_bytes"] \
+        <= ALLOC_ROUNDING * res["leaves"], res
+    return res
+
+
+def phase_sharded_restore(device, card: str) -> dict:
+    spec = SHARDED
+    t0 = time.perf_counter()
+    res = sharded_restore(device, spec, ROOT / "build")
+    res["phase_s"] = time.perf_counter() - t0
+    gb = res["bytes_written"] / 1e9
+    print(f"[sharded restore] {spec['arch']} train state "
+          f"{res['state_bytes']} bytes: laid out on {spec['save_mesh']} "
+          f"x cuda in {res['put_s']:.3f} s (bytes per position "
+          f"{res['save_position_bytes']}), saved in {res['save_s']:.3f} s "
+          f"({gb:.2f} GB written), restored onto {spec['restore_mesh']} in "
+          f"{res['restore_s']:.3f} s (bytes per position "
+          f"{res['restore_position_bytes']}); every leaf bit-equal: "
+          f"{res['bit_equal']}, device sets {res['device_sets']} [{card}]")
+    print(f"[sharded restore] the 1x1 plan's state bytes "
+          f"{res['plan_state_bytes']} against {res['allocated_bytes']} "
+          f"allocated by init_state on the card ({res['leaves']} leaves) "
+          f"[{card}]")
+    dry = res["dryrun"]
+    print(f"[sharded restore] dry run {dry['arch']} {dry['cell']} on "
+          f"{dry['mesh']} (the card machine's CPU): per device arguments "
+          f"{dry['mem_argument_bytes']}, outputs {dry['mem_output_bytes']}, "
+          f"temp {dry['mem_temp_bytes']} bytes; FLOPs "
+          f"{dry['rolled']['flops']} (per device "
+          f"{dry['rolled']['flops_per_device']}); collectives "
+          f"{json.dumps(dry['rolled']['collectives'])}; plan_s "
+          f"{dry['plan_s']}; phase {res['phase_s']:.1f} s [{card}]")
+    print("[sharded restore] summary " + json.dumps(
+        {k: v for k, v in res.items() if k != "dryrun"}))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 7j: Mamba2-2.7B served at full width and depth over the QoS fabric,
 # then two training steps at full width
 # ---------------------------------------------------------------------------
@@ -3312,6 +3471,9 @@ def main(argv=None) -> int:
     assert paths["serve fullwidth"][0] >= llama["ticked"]
     free_card()
     main_path("train default", lambda: phase_train_default(device, card),
+              fabric=False)
+    free_card()
+    main_path("sharded restore", lambda: phase_sharded_restore(device, card),
               fabric=False)
     free_card()
     ssm = main_path("serve ssm", lambda: phase_serve_model(

@@ -12,9 +12,13 @@ layout, so a checkpoint written by either package restores in the other:
 Keys are the reference's (``repro_torch.tree.tree_leaves_with_path``: a
 ``TrainState`` gives ``.params/embed``, ``.m/...``, ``.step``).
 Everything is written into ``step_<N>.tmp`` and renamed; ``keep`` committed
-steps are retained.  ``restore`` checks each leaf's CRC and shape and puts
-it on ``device`` (the reference's ``shardings=``; resharding onto a mesh
-waits for ``parallel/``, ROADMAP.md "Modules to port", item 6).
+steps are retained.  ``restore`` checks each leaf's CRC and shape, then
+places each leaf that ``shardings=`` names onto its placement mesh
+(:func:`repro_torch.parallel.sharding.device_put`: elastic resharding, the
+checkpoint has no memory of the mesh it was saved from) and puts the rest
+on ``device``.  ``save`` takes a sharded leaf
+(:class:`~repro_torch.parallel.sharding.ShardedTensor`) and writes the
+gathered array, so the files do not depend on the mesh either.
 
 bfloat16 leaves are stored as the JAX package stores them: ``np.save`` of an
 ``ml_dtypes`` bfloat16 array writes raw two-byte records under
@@ -34,6 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import ShardedTensor, device_put
 from ..tree import tree_leaves_with_path, tree_map, tree_unflatten
 
 BF16_DESCR = "<V2"      # what np.save writes for an ml_dtypes bfloat16 array
@@ -41,7 +46,10 @@ BF16_DESCR = "<V2"      # what np.save writes for an ml_dtypes bfloat16 array
 
 def _host(leaf) -> Any:
     """A leaf's own host copy: a CPU tensor that no later in-place update
-    of ``leaf`` can reach, or the leaf itself when it is not a tensor."""
+    of ``leaf`` can reach (a sharded leaf gathered), or the leaf itself
+    when it is not a tensor."""
+    if isinstance(leaf, ShardedTensor):
+        return leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return leaf
@@ -49,6 +57,8 @@ def _host(leaf) -> Any:
 
 def _as_numpy(leaf) -> tuple[np.ndarray, str]:
     """(contiguous array of the leaf's bytes, manifest dtype name)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -116,13 +126,18 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory, step: int, template, *, device=None,
-            validate: bool = True):
+def restore(directory, step: int, template, *, shardings=None,
+            device=None, validate: bool = True):
     """Rebuild a ``template``-shaped tree from disk; each leaf takes its
-    template leaf's dtype and goes to ``device`` (``None``: the template
-    leaf's device).  Returns ``(tree, extras)``."""
+    template leaf's dtype.  A leaf that ``shardings`` (a tree of
+    :class:`~repro_torch.parallel.sharding.NamedSharding` on placement
+    meshes, keyed like ``template``) names is split over its mesh; the
+    others go to ``device`` (``None``: the template leaf's device).
+    Returns ``(tree, extras)``."""
     d = pathlib.Path(directory) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
+    flat_shards = dict(tree_leaves_with_path(shardings)) \
+        if shardings is not None else {}
 
     loaded = {}
     for key, meta in manifest.items():
@@ -142,8 +157,11 @@ def restore(directory, step: int, template, *, device=None,
             raise ValueError(
                 f"{key}: ckpt shape {tuple(got.shape)} != template "
                 f"{tuple(leaf.shape)}")
-        ordered.append(got.to(device=leaf.device if device is None
-                              else device, dtype=leaf.dtype))
+        if key in flat_shards:
+            ordered.append(device_put(got.to(leaf.dtype), flat_shards[key]))
+        else:
+            ordered.append(got.to(device=leaf.device if device is None
+                                  else device, dtype=leaf.dtype))
     tree = tree_unflatten(template, ordered)
     extras = json.loads((d / "extras.json").read_text())
     return tree, extras

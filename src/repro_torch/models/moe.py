@@ -14,9 +14,11 @@ Routing is written so that it is the reference's on every device:
   stable) and the expert starts are ``searchsorted`` on the left side;
 * the router runs in float32 whatever the compute dtype.
 
-The reference's expert-parallel sharding hint (``_ep``,
-``REPRO_MOE_EP`` / ``REPRO_MOE_CAP_SHARD``) is a no-op without a device
-mesh and is not ported (ROADMAP.md, "Modules to port", item 6).
+Expert parallelism: with ``REPRO_MOE_EP=1`` the expert-major
+intermediates are constrained to experts over "model" (``_ep``), capacity
+slots also over "data" with ``REPRO_MOE_CAP_SHARD=1``, as in the
+reference.  The constraint acts only on a DTensor laid out on a planning
+mesh (the dry run); every other tensor passes unchanged.
 """
 from __future__ import annotations
 
@@ -26,7 +28,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import P, constrain
 from .layers import ninit
+
+
+def _ep(x, spec):
+    """Expert-parallel sharding constraint (``REPRO_MOE_EP=1``; a no-op
+    on a tensor that is not laid out on a mesh).  Without it the plan
+    all-gathers the full token array into every expert shard."""
+    if os.environ.get("REPRO_MOE_EP") != "1":
+        return x
+    return constrain(x, spec)
 
 
 def init_moe_block(seed, path, cfg, dtype, device):
@@ -140,10 +152,19 @@ def moe_forward(cfg, params, x):
 
     cap = capacity(T, k, E, cfg.capacity_factor)
     order, starts, tok_idx, w, _ = sort_dispatch(topi, topv, E, cap)
-    xe = xt[tok_idx]                                          # [E, cap, D]
+
+    # experts over "model" (EP); capacity slots optionally over "data"
+    cap_axes = ("data",) if os.environ.get("REPRO_MOE_CAP_SHARD") == "1" \
+        else (None,)
+    spec2 = P("model", *cap_axes)
+    spec3 = P("model", *cap_axes, None)
+    tok_idx = _ep(tok_idx, spec2)
+    w = _ep(w, spec2)
+    xe = _ep(xt[tok_idx], spec3)                              # [E, cap, D]
     h = torch.einsum("ecd,edf->ecf", xe, params["wg"])
     u = torch.einsum("ecd,edf->ecf", xe, params["wu"])
-    ye = torch.einsum("ecf,efd->ecd", F.silu(h) * u, params["wd"])
+    h = _ep(F.silu(h) * u, spec3)
+    ye = _ep(torch.einsum("ecf,efd->ecd", h, params["wd"]), spec3)
 
     if os.environ.get("REPRO_MOE_COMBINE", "gather") == "scatter":
         yt = torch.zeros((T, D), dtype=ye.dtype, device=ye.device)

@@ -12,17 +12,33 @@ reference.  Numerics are the reference's: the segment sums are masked to
 -inf BEFORE ``exp`` (masking after leaks NaN into the backward pass); the
 cumulative sums, decays and states are float32.
 
-The reference's head-sharding hint ``_hs`` (``REPRO_SSM_SHARD_HEADS``) is a
-no-op without a device mesh and is left out (ROADMAP.md, "Modules to port",
-item 6).
+With ``REPRO_SSM_SHARD_HEADS=1`` the intra-chunk [B, nc, Q, Q, H] tensors
+are constrained to heads over "model" (``_hs``), as in the reference; the
+constraint acts only on a DTensor laid out on a planning mesh (the dry
+run), every other tensor passes unchanged.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import P as PSpec, constrain
 from .layers import ninit, rms_norm
+
+_HEADS = PSpec(None, None, None, None, "model")
+
+
+def _hs(x, spec):
+    """Head-sharding constraint for the intra-chunk SSD tensors
+    (``REPRO_SSM_SHARD_HEADS=1``; a no-op on a tensor that is not laid out
+    on a mesh).  The [B, nc, Q, Q, H] decay and score tensors otherwise
+    replicate on the model axis and dominate per-device memory."""
+    if os.environ.get("REPRO_SSM_SHARD_HEADS") != "1":
+        return x
+    return constrain(x, spec)
 
 
 def init_ssm_block(seed, path, cfg, dtype, device):
@@ -108,13 +124,15 @@ def ssd_forward(cfg, params, x):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nc,Qq,Qk,H]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     # mask BEFORE exp: i<j entries are positive and overflow
-    L = torch.exp(seg.masked_fill(~causal[:, :, None], -torch.inf))
+    L = _hs(torch.exp(seg.masked_fill(~causal[:, :, None], -torch.inf)),
+            _HEADS)
 
     # intra-chunk: y_i += sum_j (C_i . B_j) L_ij dt_j x_j
     Bh = Bc.repeat_interleave(rep, dim=3)                 # [B,nc,Q,H,N]
     Ch = Cc.repeat_interleave(rep, dim=3)
-    cb = torch.einsum("bcqhn,bckhn->bcqkh", Ch, Bh)
-    y = torch.einsum("bcqkh,bckhp->bcqhp", cb * L * dtc[:, :, None], xc)
+    cb = _hs(torch.einsum("bcqhn,bckhn->bcqkh", Ch, Bh), _HEADS)
+    w = _hs(cb * L * dtc[:, :, None], _HEADS)
+    y = torch.einsum("bcqkh,bckhp->bcqhp", w, xc)
 
     # chunk states: S_c = sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)

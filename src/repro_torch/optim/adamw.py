@@ -1,9 +1,9 @@
 """AdamW with global-norm clipping and a warmup-cosine schedule.
 
 PyTorch port of ``repro.optim.adamw`` over
-nested-dict trees of tensors, float32 arithmetic as in the reference.
-ZeRO-1 moment partitioning (``zero1_pspecs``) waits for the sharding
-port (ROADMAP.md, "Modules to port", item 6).
+nested-dict trees of tensors, float32 arithmetic as in the reference, and
+its ZeRO-1 moment partitioning (:func:`zero1_pspecs`: moments sharded over
+the "data" axis on top of the tensor-parallel parameter specs).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharding import P
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -81,3 +82,18 @@ def adamw_update(cfg: AdamWConfig, params, grads, m, v, step, *,
     return (tree_unflatten(params, [o[0] for o in out]),
             tree_unflatten(m, [o[1] for o in out]),
             tree_unflatten(v, [o[2] for o in out]), gnorm)
+
+
+def zero1_pspecs(param_pspecs, params, data_size: int = 16):
+    """ZeRO-1: additionally shard each moment leaf's first large,
+    still-replicated, divisible dim over the "data" axis."""
+    def z(spec, p):
+        dims = list(spec) + [None] * (p.ndim - len(spec))
+        for i, d in enumerate(dims):
+            if d is None and p.shape[i] % data_size == 0 \
+                    and p.shape[i] >= data_size:
+                dims[i] = "data"
+                return P(*dims)
+        return P(*dims)
+
+    return tree_map(z, param_pspecs, params)

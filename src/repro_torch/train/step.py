@@ -1,10 +1,9 @@
 """Training steps: the functions that make each step.
 
-PyTorch port of ``repro.train.step`` (train, grads, apply and the
-overlapped grads step; the prefill and decode step builders wait for
-``launch/dryrun.py``, their only caller, ROADMAP.md "Modules to port",
-item 6).  A step takes a batch as a dict of numpy arrays or tensors and
-moves it to the parameters' device.
+PyTorch port of ``repro.train.step``: train, grads, apply, the
+overlapped grads step, and the prefill and decode steps (their only
+caller is the dry run, ``launch/dryrun.py``).  A step takes a batch as a
+dict of numpy arrays or tensors and moves it to the parameters' device.
 
 The train step CONSUMES its input state: AdamW writes the new parameters
 and moments into the input's tensors, one leaf at a time (the values are
@@ -197,3 +196,23 @@ def make_apply_step(cfg: ArchConfig,
         return TrainState(new_p, new_m, new_v, state.step + 1)
 
     return apply_step
+
+
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    model = build_model(cfg)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    model = build_model(cfg)
+
+    def serve_step(params, cache, tokens):
+        logits, cache = model.decode_step(params, cache, tokens)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_tok, cache
+
+    return serve_step
