@@ -34,9 +34,10 @@ Phases (each raises on failure; the script then exits non-zero):
    rounds) with their spread;
 4. the main paths, each driven with the kernel launch counts set to 0 just
    before it and read just after:
-   a. the adversarial-orders workload (``examples/adversarial_orders.py``):
-      ``run_static_order`` proves the single-FIFO baseline deadlocks, then
-      the port's runtime completes it (3486 supersteps, 606 preempts);
+   a. the adversarial-orders workload: ``repro_torch.examples.
+      adversarial_orders`` (``run_static_order`` proves the single-FIFO
+      baseline deadlocks, then the port's runtime completes it: 3486
+      supersteps, 606 preempts);
    b. real size, flat ring: R=8 simulated ranks, two ALL_REDUCE buckets of
       2^22 float32 elements (a DDP-sized gradient bucket) submitted in
       opposite orders on odd and even ranks, 2 iterations (34491 supersteps
@@ -93,6 +94,18 @@ Phases (each raises on failure; the script then exits non-zero):
       with preemption; 386.65, 0, 2292 without; the background drains;
    d. grad-sync ``evict(3)`` on 4 ranks: the survivors keep averaging, a
       ``DeviceApi`` kept across it is stale, a fresh one runs a step;
+   x. (runs after d, each example a main path of its own, the card
+      emptied after each) the port's examples that 4a and g do not run,
+      ``repro_torch.examples.<name>.main(["--device", "cuda"])`` at the
+      reference's sizes: quickstart, elastic_shrink,
+      hierarchical_allreduce, moe_alltoall, overlap_training and
+      train_dp_occl (64235008 parameters: its fault-tolerant loop at its
+      defaults, 60 steps with a failure before step 40 and checkpoints
+      every 25, the first replayed loss bitwise its first run's; its DP
+      loop cut to ``EXAMPLE_DP_STEPS``); each one's wall time,
+      supersteps, preempts and ``fused_burst`` launches, and its counts
+      held to the reference's (``EXAMPLE_COUNTS``; ``auto``'s picks
+      follow the card's fit and are printed only);
    e. the full-width MoE cell: DeepSeek-MoE-16B's MoE block (d_model 2048,
       64 experts top-6, 2 shared, d_ff_expert 1408, f32, capacity factor
       1.25) over R=4 expert-parallel ranks, 4096 tokens per rank (cap 480),
@@ -101,8 +114,8 @@ Phases (each raises on failure; the script then exits non-zero):
       float64 recomputation from its routing, every exchange completed
       once per rank; supersteps, tick calls, preempts, wall, launches and
       peak memory;
-   f. ViT-Base at full width and 4 of its 12 layers (29.9 M parameters;
-      the depth cut makes room for k-m) over 4 simulated DP ranks,
+   f. ViT-Base at full width and 1 of its 12 layers (8.6 M parameters;
+      the depth cut makes room for k-m and x) over 4 simulated DP ranks,
       global batch 128, DDP-sized buckets (6553600 elements), slice 1024,
       burst 8: one host-driven step of
       ``launch/train.py::run_occl_dp``, then one overlapped grads step at 8
@@ -110,7 +123,7 @@ Phases (each raises on failure; the script then exits non-zero):
       to the float64 average of the per-rank grads (rtol 1e-4, atol 1e-6)
       and every bucket completed once per rank; wall per step, supersteps,
       ``fused_burst`` launches, samples/s and the record's modeled step;
-   g. (runs after e) ``examples/serve_batched.py`` on the port: llama3-8b
+   g. (runs after e) ``repro_torch.examples.serve_batched``: llama3-8b
       ``.reduced()``, 10 requests, batch 4, prompt_len 16: the engine
       alone, then with its ``ServingQos`` fabric with preemption off and
       on (decode p99 258 and 6 supersteps; the background drains), then a
@@ -138,7 +151,9 @@ Phases (each raises on failure; the script then exits non-zero):
       ``--resume --steps 10`` restores a state bit-equal to the
       controller's final one and runs 2 steps; ms per step, seconds per
       save (host copy, write, crc) and per restore, GB written, peak
-      memory.  The path launches no kernel (asserted);
+      memory; then two steps from a fresh state under ``remat="full"``
+      and two under ``"dots"`` (ms per step, peak memory; the first
+      losses bitwise equal).  The path launches no kernel (asserted);
    n. (runs after i, the card emptied on each side) the sharding layer:
       Qwen3-0.6B's full-width train state laid out under
       ``state_shardings`` on a 4x2 ("data", "model") placement mesh of 8 x
@@ -207,12 +222,14 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+# examples/adversarial_orders.py's runtime (phase 4a runs the port's
+# example; phase 2 holds the kernel at its burst shape).
 ADV = dict(n_ranks=8, max_colls=8, max_comms=1, slice_elems=64,
            conn_depth=4, heap_elems=1 << 16, superstep_budget=1 << 15)
 REAL = dict(n_ranks=8, max_colls=2, max_comms=1, slice_elems=1024,
             conn_depth=32, burst_slices=8, heap_elems=1 << 24)
 REAL_BUCKET = 1 << 22
-ADV_ITERS, REAL_ITERS = 3, 2
+REAL_ITERS = 2
 # Phase 4d's real-size mesh cell: the flat cell's shape (R=8, slice 1024,
 # K=32, B=8) with buckets of 2^20 (the flat cell's 2^22 cut to fit the
 # time limit), one iteration.
@@ -254,16 +271,17 @@ A2A_MIX_STEPS = 284
 EVICT_STEPS = 520
 RECORD_ITERS = 3
 # The training path: ViT-Base (src/repro_torch/configs/vit_base.py) at full
-# width and 4 of its 12 layers (29863680 parameters), 4 simulated DP ranks,
+# width and 1 of its 12 layers (8611584 parameters), 4 simulated DP ranks,
 # global batch 128, PyTorch DDP's default bucket (bucket_cap_mb=25 in
 # float32), the real-size cells' slice and burst.  Its runtime
-# (OcclGradSync's own formula): C=8 (5 buckets), K=24, a heap of 238915840
+# (OcclGradSync's own formula): C=8 (2 buckets), K=24, a heap of 68893696
 # elements per rank.  At full depth (9 buckets, a heap of 692308224) the
-# cell took 325 s of the script's time limit; phase 2 still holds the
-# kernel on that heap (VIT_FULL_RUNTIME).
-VIT = dict(arch="vit-base", n_layers=4, dp=4, batch=128,
+# cell took 325 s of the script's time limit, at 4 layers 122 s, at 2
+# layers 64 s; phase 2 still holds the kernel on the full-depth heap
+# (VIT_FULL_RUNTIME).
+VIT = dict(arch="vit-base", n_layers=1, dp=4, batch=128,
            bucket_elems=6_553_600, slice_elems=1024, burst_slices=8)
-VIT_RUNTIME = dict(R=4, C=8, K=24, heap_elems=238_915_840)
+VIT_RUNTIME = dict(R=4, C=8, K=24, heap_elems=68_893_696)
 VIT_FULL_RUNTIME = dict(R=4, C=9, K=24, heap_elems=692_308_224)
 VIT_HOST_STEPS = 1
 VIT_OVERLAP_TICKS = 8
@@ -842,45 +860,17 @@ def phase_chunk_combine(device) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_adversarial(device) -> dict:
-    from repro_torch import core
+    """``repro_torch.examples.adversarial_orders`` on the card: the static
+    baseline deadlocks, the port's runtime completes the workload."""
+    from repro_torch.examples import adversarial_orders
 
-    R, C = ADV["n_ranks"], ADV["max_colls"]
-    rng = np.random.RandomState(42)
-    orders = {r: list(rng.permutation(C)) for r in range(R)}
-    static = core.run_static_order(orders,
-                                   {c: list(range(R)) for c in range(C)})
-    assert static.deadlocked and static.cycle, static
+    res = adversarial_orders.main(["--device", str(device)])
+    assert res["static"]["deadlocked"] and res["static"]["cycle"], res
     print(f"[adversarial] static single-FIFO execution deadlocks; wait-for "
-          f"cycle over ranks {static.cycle}")
-    rt = runtime(core, ADV, device)
-    world = rt.communicator(list(range(R)))
-    sizes = [64 << (i % 5) for i in range(C)]
-    ids = [rt.register(core.CollKind.ALL_REDUCE, world, n_elems=s)
-           for s in sizes]
-    t0 = time.perf_counter()
-    for it in range(ADV_ITERS):
-        data = {i: [rng.randn(sizes[i]).astype(np.float32) for _ in range(R)]
-                for i in range(C)}
-        for r in range(R):
-            for slot in orders[r]:
-                rt.submit(r, ids[slot], data=data[slot][r])
-        rt.drive()
-        outs = rt.read_outputs_bulk([(r, ids[i]) for i in range(C)
-                                     for r in range(R)])
-        for i in range(C):
-            want = sum(data[i])
-            for r in range(R):
-                np.testing.assert_allclose(outs[(r, ids[i])], want,
-                                           rtol=1e-4, atol=1e-5)
-    secs = time.perf_counter() - t0
-    st = rt.stats()
-    res = {"supersteps": int(st["supersteps"].max()),
-           "preempts": int(st["preempts"].sum()),
-           "completed": int(st["completed"].sum()),
-           "launches": rt.launches, "seconds": secs}
+          f"cycle over ranks {res['static']['cycle']}")
     print(f"[adversarial] OCCL completed {res['completed']} all-reduces "
           f"correctly in {res['supersteps']} supersteps, {res['preempts']} "
-          f"preempts, {res['launches']} launches, {secs:.3f} s")
+          f"preempts, {res['launches']} launches, {res['seconds']:.3f} s")
     assert (res["supersteps"], res["preempts"]) == (
         ADV_SUPERSTEPS, ADV_PREEMPTS), res
     return res
@@ -2012,21 +2002,110 @@ def phase_evict(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7g: examples/serve_batched.py on the port (the engine, QoS on / off)
+# phase x: the port's examples on the card (4a and 7g run the other two)
 # ---------------------------------------------------------------------------
 
-# examples/serve_batched.py at its defaults: llama3-8b .reduced(), 10
-# requests of 4-15 prompt tokens (RandomState(0)) and 12 new tokens each,
-# batch 4, prompt_len 16, max_len 96; its part 2 fabric, with preemption on
-# and off; its part 3 fabric for the mid-burst decode.
-SERVE_BATCHED = dict(arch="llama3-8b", n_requests=10, max_new=12, batch=4,
-                     prompt_len=16, seed=0)
-SERVE_BATCHED_QOS = dict(n_ranks=4, decode_elems=256, prefill_elems=1024,
-                         background_elems=4096, background_buckets=2,
-                         prio_aging_quantum=8)
-MID_BURST_QOS = dict(n_ranks=4, decode_elems=256, background_elems=4096,
-                     preemption=True)
+# repro_torch.examples at the reference's sizes, in this order.
+# train_dp_occl runs at its full width (64235008 parameters) with its
+# fault-tolerant loop at its defaults (60 steps, a failure before step 40,
+# checkpoints every 25, in a temporary directory under build/) and its
+# OCCL-synced DP loop cut from 30 steps to EXAMPLE_DP_STEPS: at slice 1024
+# and burst 1 a step's 64235008 elements take about 94000 supersteps.
+EXAMPLE_DP_STEPS = 1
+EXAMPLES = (("quickstart", ()), ("elastic_shrink", ()),
+            ("hierarchical_allreduce", ()), ("moe_alltoall", ()),
+            ("overlap_training", ()),
+            ("train_dp_occl", ("--dp-steps", str(EXAMPLE_DP_STEPS))))
+_LEDGER = lambda total, hidden: {"supersteps": total, "hidden": hidden,
+                                 "exposed": total - hidden}
+_STATIC = {"deadlocked": True, "cycle": [0, 1]}
+# The reference's counts (tests/test_torch_examples_*.py hold the port's
+# examples to the reference's scripts on the CPU); hierarchical_allreduce's
+# `auto` picks follow the card's fit (BENCH_torch_calibration.json) and are
+# printed, not held.
+EXAMPLE_COUNTS = {
+    "quickstart": {"completed": 8, "n_ranks": 4, "supersteps": 116,
+                   "preempts": 12},
+    "elastic_shrink": {
+        "holders": [5],
+        "tail": "PREEMPT(coll=3), PREEMPT(coll=0), PREEMPT(coll=1)",
+        "evict": {"n_ranks": 7, "replayed": 28, "dropped": 0,
+                  "generation": 1},
+        "supersteps": 156, "fresh_supersteps": 156},
+    "hierarchical_allreduce": {
+        "chain": [0, 1, 2], "stage_completions": [32, 32, 32],
+        "logical_cqes": [0, 0, 32], "steps": {"ring": 31, "two_level": 15},
+        "static": _STATIC, "preempts": 96, "launches": 1},
+    "moe_alltoall": {
+        "program_len": 136, "steps": {"ring": 136, "two_level": 20},
+        "moe": {"no-drop": {"cap": 16, "bitwise": True},
+                "capacity-dropped": {"cap": 4, "bitwise": True}},
+        "static": _STATIC, "preempts": 891, "launches": 1},
+    "overlap_training": {
+        "dense": {"buckets": 7, "n_ranks": 2, "barrier": _LEDGER(162, 0),
+                  "overlapped": _LEDGER(185, 112)},
+        "moe": {"barrier": _LEDGER(360, 0),
+                "overlapped": _LEDGER(320, 64)}},
+    "train_dp_occl": {
+        "params": 64235008, "leaves": 14, "dp": 2,
+        "ft": {"steps": list(range(40)) + list(range(25, 60)),
+               "restarts": 1},
+        "dp_loop": {"steps": EXAMPLE_DP_STEPS, "buckets": 11}},
+}
+TIMEOUT_TEXT = ("28 collectives outstanding after 4 consecutive daemon "
+                "launches without progress (5 total)")
 
+
+def held(res: dict, want: dict) -> dict:
+    """The entries of ``res`` that ``want`` names, nested dicts alike."""
+    return {k: held(res[k], v) if isinstance(v, dict) else res[k]
+            for k, v in want.items()}
+
+
+def phase_example(name: str, argv, device, card: str) -> dict:
+    """``repro_torch.examples.<name>.main`` on ``device`` with its wall
+    time (ending in a device sync); its counts held to
+    ``EXAMPLE_COUNTS``."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    t0 = time.perf_counter()
+    res = mod.main(["--device", str(device), *argv])
+    _sync(device)
+    res["wall_s"] = time.perf_counter() - t0
+    want = EXAMPLE_COUNTS[name]
+    got = held(res, want)
+    assert got == want, (name, got)
+    if name == "elastic_shrink":
+        assert TIMEOUT_TEXT in res["timeout"], res["timeout"]
+    if name == "hierarchical_allreduce":
+        print(f"[example] hierarchical_allreduce: auto picks on the card's "
+              f"fit {res['auto']} [{card}]")
+    if name == "train_dp_occl":
+        # the first step replayed after the recovery must give its first
+        # run's loss, bit for bit (as in 7i)
+        ft, dp = res["ft"], res["dp_loop"]
+        replay = replays(ft["steps"], ft["losses"])
+        res["replay_bitwise"] = [a == b for a, b in replay]
+        assert res["replay_bitwise"][0], replay
+        assert all(np.isfinite(ft["losses"] + dp["losses"])), res
+        print(f"[example] train_dp_occl: {res['params']} parameters; ft "
+              f"loop {len(ft['steps'])} steps, {ft['restarts']} restart, "
+              f"median {np.median(ft['step_ms']):.3f} ms per step, "
+              f"replayed losses bitwise equal: {res['replay_bitwise']}; "
+              f"occl dp loop {dp['steps']} step(s), {dp['buckets']} "
+              f"buckets, {dp['supersteps']} supersteps, s per step "
+              f"{[round(x, 3) for x in dp['step_s']]} of which all-reduce "
+              f"{[round(x, 3) for x in dp['sync_s']]} "
+              f"({1e3 * sum(dp['sync_s']) / dp['supersteps']:.4f} ms per "
+              f"superstep with staging and reads), "
+              f"{dp['samples_per_s']:.3f} samples/s [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7g: repro_torch.examples.serve_batched (the engine, QoS on / off)
+# ---------------------------------------------------------------------------
 
 def tenant(n: int, done: int, p50=None, p99=None, mean=None) -> dict:
     """One class's entry of ``ServingQos.summary()`` (None: no sample)."""
@@ -2100,64 +2179,6 @@ CACHE_LEAVES = SSM_CACHE + ("shared_k", "shared_v")
 LLAMA_BOUNDS = {dt: {"rel_l2": b} for dt, b in CACHE_CHECK_REL_L2.items()}
 
 
-def batched_requests(n: int, vocab: int, max_new: int, rng) -> list:
-    """``examples/serve_batched.py``'s ``_reqs`` on the port."""
-    from repro_torch.serving import Request
-
-    return [Request(rid=i,
-                    prompt=rng.randint(0, vocab, size=rng.randint(4, 16)),
-                    max_new_tokens=max_new) for i in range(n)]
-
-
-def serve_batched(device, spec: dict = SERVE_BATCHED) -> dict:
-    """``examples/serve_batched.py``'s three parts on the port: (1) the
-    engine alone, (2) the engine with the QoS fabric, preemption off then
-    on (its ``stats["qos"]`` and the background tenant after a drain),
-    (3) a decode submitted while a background burst holds the lane."""
-    from repro_torch.configs import get_config
-    from repro_torch.serving import ServingEngine, ServingQos, TrafficClass
-
-    cfg = get_config(spec["arch"]).reduced()
-
-    def engine(qos=None):
-        e = ServingEngine(cfg, batch_size=spec["batch"],
-                          prompt_len=spec["prompt_len"], qos=qos,
-                          device=device)
-        for r in batched_requests(spec["n_requests"], cfg.vocab,
-                                  spec["max_new"],
-                                  np.random.RandomState(spec["seed"])):
-            e.submit(r)
-        t0 = time.perf_counter()
-        done = e.run()
-        _sync(device)
-        wall = time.perf_counter() - t0
-        assert e.stats["tokens"] == sum(len(r.out_tokens) for r in done)
-        return e, done, wall
-
-    e, done, wall = engine()
-    out = {"alone": dict(e.stats, requests=len(done), wall_s=wall,
-                         first_tokens=[r.out_tokens[:8] for r in done[:4]])}
-    for pre in (False, True):
-        qos = ServingQos(**SERVE_BATCHED_QOS, preemption=pre, device=device)
-        e, done, wall = engine(qos)
-        qos.drain()             # bounded starvation: bursts all land
-        bg = qos.tenants[TrafficClass.BACKGROUND]
-        out["preempt_on" if pre else "preempt_off"] = {
-            "qos": e.stats.pop("qos"), "stats": dict(e.stats),
-            "requests": len(done), "wall_s": wall,
-            "background": [bg.completed, bg.submitted],
-            "ticked": qos.summary()["supersteps"]}
-    qos = ServingQos(**MID_BURST_QOS, device=device)
-    qos.submit_background()
-    qos.advance(2)              # the burst holds the lane mid-superstep
-    lat = qos.wait(qos.submit_decode())
-    qos.drain()
-    out["mid_burst"] = {"latency": lat,
-                        "preempts": qos.summary()["preempts"],
-                        "supersteps": qos.summary()["supersteps"]}
-    return out
-
-
 def no_nan(tree):
     """``tree`` with every NaN float replaced by None (a tenant with no
     latency sample has NaN percentiles), so that ``==`` compares it."""
@@ -2169,8 +2190,8 @@ def no_nan(tree):
 
 
 def serve_batched_counts(res: dict) -> dict:
-    """The structural part of :func:`serve_batched`'s result (no walls,
-    no tokens): what the card must reproduce."""
+    """The structural part of ``repro_torch.examples.serve_batched``'s
+    result (no walls, no tokens): what the card must reproduce."""
     keep = ("prefills", "decode_steps", "tokens", "admissions")
     out = {"alone": {k: res["alone"][k] for k in keep},
            "mid_burst": res["mid_burst"]}
@@ -2183,7 +2204,13 @@ def serve_batched_counts(res: dict) -> dict:
 
 
 def phase_serve_batched(device, card: str) -> dict:
-    res = serve_batched(device)
+    """``repro_torch.examples.serve_batched`` at its defaults (llama3-8b
+    ``.reduced()``, 10 requests, 12 new tokens each, batch 4, prompt_len
+    16): the engine alone, with its QoS fabric (preemption off, on), and a
+    decode submitted mid-burst."""
+    from repro_torch.examples import serve_batched
+
+    res = serve_batched.main(["--device", str(device)])
     a = res["alone"]
     print(f"[serve batched] engine alone: {a['requests']} requests, "
           f"{a['tokens']} tokens, {a['prefills']} prefills, "
@@ -2608,6 +2635,10 @@ TRAIN_DEFAULT = dict(arch="qwen3-0.6b", reduced=False, batch=8, seq=64,
                      resume_steps=10)
 CKPT_COPIES = 3     # keep=2 committed steps and the step being written
 REPLAY_RTOL = 1e-5  # the second replayed step's loss against its first run
+# Then REMAT_STEPS make_train_step steps at the same width and batch under
+# cfg.remat "full" (the config's) and "dots" (the 2-D products saved), each
+# from a fresh state on the same batches.
+REMAT_STEPS = 2
 
 
 def bit_equal(a, b) -> bool:
@@ -2615,6 +2646,15 @@ def bit_equal(a, b) -> bool:
 
     return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def replays(steps: list, losses: list) -> list:
+    """(first run's loss, replayed loss) of the first two steps a recovery
+    replays: those after the point where the step numbers fall back."""
+    fail = next(i for i in range(1, len(steps)) if steps[i] <= steps[i - 1])
+    first = dict(zip(steps[:fail], losses[:fail]))
+    return [(first[s], loss) for s, loss in
+            zip(steps[fail:fail + 2], losses[fail:fail + 2])]
 
 
 def timed_calls(mod, names) -> tuple[dict, dict, callable]:
@@ -2736,17 +2776,57 @@ def train_default(device, spec: dict, workdir: pathlib.Path) -> dict:
     res["bytes_written"] = res["saves"] * res["state_bytes"]
     assert res["steps"] == list(range(fail)) + list(range(last, steps)), res
     assert res["restarts"] == 1 and res["final_step"] == steps, res
-    first = dict(zip(res["steps"][:fail], res["losses"][:fail]))
-    replay = list(zip(res["steps"][fail:], res["losses"][fail:]))[:2]
-    res["replay_bitwise"] = [loss == first[s] for s, loss in replay]
+    replay = replays(res["steps"], res["losses"])
+    res["replay_bitwise"] = [a == b for a, b in replay]
     assert res["replay_bitwise"][0], replay
-    s, loss = replay[1]
-    assert abs(loss - first[s]) <= REPLAY_RTOL * abs(first[s]), replay
+    first, again = replay[1]
+    assert abs(again - first) <= REPLAY_RTOL * abs(first), replay
     assert all(np.isfinite(res["losses"] + res["resumed_losses"])), res
     assert restored["step"] == steps and restored["bit_equal"], restored
     assert res["resumed_steps"] == list(range(steps, spec["resume_steps"]))
     assert res["resumed_final_step"] == spec["resume_steps"], res
     return res
+
+
+def remat_steps(device, spec: dict) -> dict:
+    """``REMAT_STEPS`` train steps under each remat policy: ms per step
+    (host clock, synced), peak memory, losses.  The first step's loss is
+    the same forward under both policies, so it must be bitwise equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+
+    base = get_config(spec["arch"])
+    base = base.reduced() if spec["reduced"] else base
+    pipe = SyntheticPipeline(base, ShapeCell("cli", spec["seq"],
+                                             spec["batch"], "train"))
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for policy in ("full", "dots"):
+        free_card()     # the peak must not count an earlier phase's garbage
+        cfg = dataclasses.replace(base, remat=policy)
+        state = init_state(cfg, device=device)
+        step = make_train_step(cfg)
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for i in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, pipe.batch_at(i))
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[policy] = {"step_ms": ms, "losses": losses,
+                       "peak_bytes": (torch.cuda.max_memory_allocated()
+                                      if cuda else None)}
+        del state, step
+    free_card()
+    assert out["dots"]["losses"][0] == out["full"]["losses"][0], out
+    assert all(np.isfinite(out[p]["losses"]).all() for p in out), out
+    return out
 
 
 def phase_train_default(device, card: str) -> dict:
@@ -2780,6 +2860,13 @@ def phase_train_default(device, card: str) -> dict:
           f"losses {res['resumed_losses']}; peak "
           f"{res['peak_bytes'] / 2**30:.2f} GiB; phase {res['phase_s']:.1f} "
           f"s [{card}]")
+    remat = remat_steps(device, spec)
+    for policy, r in remat.items():
+        print(f"[train default] remat={policy}: {REMAT_STEPS} steps from a "
+              f"fresh state, ms per step {[round(x, 3) for x in r['step_ms']]}"
+              f", losses {r['losses']}, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+    res["remat"] = remat
     print("[train default] summary " + json.dumps(res))
     return res
 
@@ -3457,6 +3544,18 @@ def main(argv=None) -> int:
                                       for r in serving.values())
     main_path("evict", lambda: phase_evict(device))
     free_card()
+    t0 = time.perf_counter()
+    for name, argv in EXAMPLES:
+        tag = f"example {name}"
+        res = main_path(tag, lambda: phase_example(name, argv, device, card))
+        f = res["fabric"]
+        print(f"[example] {name}: wall {res['wall_s']:.3f} s, "
+              f"{f['supersteps']} supersteps, {f['preempts']} preempts, "
+              f"fused_burst launches {paths[tag][0]} [{card}]")
+        assert paths[tag][0] >= f["supersteps"], (tag, paths[tag], f)
+        del res
+        free_card()
+    print(f"[example] phase x {time.perf_counter() - t0:.1f} s [{card}]")
     full = main_path("moe fullwidth",
                      lambda: phase_moe_fullwidth(device, card))
     assert paths["moe fullwidth"][0] >= sum(

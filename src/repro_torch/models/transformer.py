@@ -15,9 +15,11 @@ gives the reference's leaf order and shapes (which decides the gradient
 buckets of ``train/occl_sync.py``).  The layer loop is a Python loop over
 the stack (the reference's ``lax.scan``); ``cfg.remat`` other than
 ``"none"`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``; the reference's ``"dots"`` policy is not
-distinguished from ``"full"``).  ``loss_fn`` casts every parameter to
-``cfg.compute_dtype`` first, as the reference does.
+(``torch.utils.checkpoint``): ``"full"`` recomputes all of it, ``"dots"``
+saves the products without batch dimensions (``aten.mm`` / ``aten.addmm``,
+the reference's ``dots_with_no_batch_dims_saveable``) and recomputes the
+rest, batched products such as attention's included.  ``loss_fn`` casts
+every parameter to ``cfg.compute_dtype`` first, as the reference does.
 
 The families' blocks:
 
@@ -60,12 +62,14 @@ place as ``k`` / ``v`` are.  The vit family has no serving path
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..tree import tree_map
@@ -240,10 +244,26 @@ def _layers(params: dict, n: int) -> list:
     return [pick(parts, i) for i in range(n)]
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: keep the
+    outputs of 2-D products (a ``[..., D] @ [D, F]`` folds its leading
+    dimensions into one ``mm``), recompute every other op."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(fn, policy: str):
     if policy == "none":
         return fn
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)   # full
 
 
 # ======================================================================

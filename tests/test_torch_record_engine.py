@@ -1,8 +1,8 @@
 """``chip_smoke.py`` phases 7g and 7h on the CPU: the functions the card
 runs, at a cost the CPU can pay.
 
-* 7g (``examples/serve_batched.py`` on the port, llama3-8b ``.reduced()``):
-  the port's run gives ``SERVE_BATCHED_COUNTS``, and so does the
+* 7g (``repro_torch.examples.serve_batched``, llama3-8b ``.reduced()``):
+  the port's example gives ``SERVE_BATCHED_COUNTS``, and so does the
   reference's engine and fabric on the same traffic, so the card can hold
   the reference's numbers.
 * 7h (Llama-3-8B served at full width): the same traffic through the
@@ -30,8 +30,10 @@ def _smoke():
 
 
 def test_serve_batched_counts_on_the_port():
+    from repro_torch.examples import serve_batched
+
     cs = _smoke()
-    res = cs.serve_batched("cpu")
+    res = serve_batched.main(["--device", "cpu"])
     assert cs.serve_batched_counts(res) == cs.SERVE_BATCHED_COUNTS
     on, off = res["preempt_on"]["qos"], res["preempt_off"]["qos"]
     assert on["decode"]["p99"] < off["decode"]["p99"]
@@ -45,23 +47,24 @@ def test_serve_batched_counts_are_the_reference(part):
     from repro.configs import get_config
     from repro.serving.engine import Request, ServingEngine
     from repro.serving.qos import ServingQos, TrafficClass
+    from repro_torch.examples import serve_batched as ex
 
     cs = _smoke()
     want = cs.SERVE_BATCHED_COUNTS
-    c = cs.SERVE_BATCHED
-    cfg = get_config(c["arch"]).reduced()
+    c = ex.parse_args([])
+    cfg = get_config(c.arch).reduced()
 
     def reqs():
-        rng = np.random.RandomState(c["seed"])
+        rng = np.random.RandomState(0)
         return [Request(rid=i,
                         prompt=rng.randint(0, cfg.vocab,
                                            size=rng.randint(4, 16)),
-                        max_new_tokens=c["max_new"])
-                for i in range(c["n_requests"])]
+                        max_new_tokens=c.max_new)
+                for i in range(c.requests)]
 
     def engine(qos=None):
-        e = ServingEngine(cfg, batch_size=c["batch"],
-                          prompt_len=c["prompt_len"], qos=qos)
+        e = ServingEngine(cfg, batch_size=ex.BATCH,
+                          prompt_len=ex.PROMPT_LEN, qos=qos)
         for r in reqs():
             e.submit(r)
         e.run()
@@ -73,7 +76,7 @@ def test_serve_batched_counts_are_the_reference(part):
         e = engine()
         assert {k: e.stats[k] for k in keep} == want["alone"]
     for pre in pres:
-        qos = ServingQos(**cs.SERVE_BATCHED_QOS, preemption=pre)
+        qos = ServingQos(**ex.QOS, preemption=pre)
         e = engine(qos)
         qos.drain()
         bg = qos.tenants[TrafficClass.BACKGROUND]
@@ -84,7 +87,7 @@ def test_serve_batched_counts_are_the_reference(part):
         key = "preempt_on" if pre else "preempt_off"
         assert cs.no_nan(got) == want[key]
     if part != "preempt_off":
-        qos = ServingQos(**cs.MID_BURST_QOS)
+        qos = ServingQos(**ex.MID_BURST_QOS)
         qos.submit_background()
         qos.advance(2)
         lat = qos.wait(qos.submit_decode())

@@ -235,7 +235,7 @@ def test_chip_smoke_vit_cell_matches_the_sync_it_builds():
         c = sync.occl.cfg
         assert (c.n_ranks, c.max_colls, c.conn_depth, c.heap_elems) \
             == tuple(want.values())
-    assert len(sync.buckets) == 9 and v["n_layers"] == 4
+    assert len(sync.buckets) == 9 and v["n_layers"] == 1
     assert cs.BURST_SHAPES[-1] == (
         "vit", c.n_ranks, c.max_comms, c.burst_slices, c.slice_elems,
         c.max_colls, c.conn_depth, c.heap_elems)

@@ -7,6 +7,14 @@ packages — the port on the CPU — and holds the outputs (bitwise, NaN
 payloads included), the scheduler's counters and the flight recorder's
 per-kind counts of the two runs equal.
 """
+import contextlib
+import importlib
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -90,3 +98,55 @@ def assert_tables_equal(jt, tt) -> None:
                 np.testing.assert_array_equal(y, x, err_msg=f.name)
         else:
             assert a == b, f.name
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@contextlib.contextmanager
+def reference_example(name: str, *args: str, env: dict | None = None,
+                      timeout: float = 300):
+    """Run the reference's ``examples/<name>.py`` in a subprocess (JAX on
+    the CPU) while the ``with`` body runs the port's example; yields a
+    function that waits for the script and returns its standard output
+    (it must exit 0).  A script still running when the body ends is killed."""
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                           JAX_PLATFORMS="cpu", **(env or {})))
+
+    def output() -> str:
+        out, err = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, out + err
+        return out
+
+    try:
+        yield output
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def run_against_reference(name: str, capsys, *args: str, env=None
+                          ) -> tuple:
+    """Run ``repro_torch.examples.<name>``'s ``main`` on the CPU beside the
+    reference's ``examples/<name>.py`` (both with ``args``); returns (the
+    port's result, the reference's output) and holds the lines the port
+    printed to the script's."""
+    with reference_example(name, *args, env=env) as output:
+        capsys.readouterr()
+        res = importlib.import_module(f"repro_torch.examples.{name}").main(
+            ["--device", "cpu", *args])
+        printed = capsys.readouterr().out
+        ref = output()
+    assert printed.splitlines() == ref.splitlines()
+    return res, ref
+
+
+def example_numbers(pattern: str, text: str) -> list:
+    """The integers of ``pattern``'s groups at its first match."""
+    m = re.search(pattern, text)
+    assert m, (pattern, text)
+    return [int(g) for g in m.groups()]
