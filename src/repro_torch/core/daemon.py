@@ -40,6 +40,7 @@ would bound the daemon.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 
 from .config import OcclConfig
 from . import primitives as P
+from . import trace
 from .scheduler import (
     LocalTables,
     Mailbox,
@@ -488,28 +490,46 @@ class _ChunkRunner:
     The ``fused_burst`` wrapper counts its launches while the chunk is
     captured; that count (the kernel launches the graph holds) is taken
     off the counter again, since the capture itself runs nothing, and
-    added once per replay."""
+    added once per replay.
+
+    Host counters (no device read): ``graph_captures``, ``graph_replays``,
+    and the bodies run by replays (``graph_supersteps``) and eagerly
+    (``eager_supersteps``: a CPU or multi-device run, a shorter chunk, the
+    first chunk before its capture); the warm-up bodies of :meth:`prime`
+    run from a not-live state and count as neither.  ``kernel_nodes`` is
+    the captured graph's kernel node count, read from the graph once at
+    capture (:func:`graph_kernel_nodes`).  Each call is one ``occl.chunk``
+    span of ``k`` units (:mod:`~repro_torch.core.trace`), device-timed
+    when ``graphed``."""
 
     def __init__(self, bodies: Callable, chunk: int, graphed: bool):
         self.bodies, self.chunk, self.graphed = bodies, chunk, graphed
         self.graph = None
+        self.kernel_nodes = None
+        self.graph_captures = self.graph_replays = 0
+        self.graph_supersteps = self.eager_supersteps = 0
 
     def __call__(self, st, inbox, k: int):
-        if k != self.chunk or not self.graphed:
-            return self.bodies(st, inbox, k)
-        if self.graph is None:
-            out = self.bodies(st, inbox, k)
-            self._capture(*out[:2])
-            return out
-        for dst, src in zip(self.static, _flat((st, inbox))):
-            if dst is not src:
-                dst.copy_(src)
-        self.graph.replay()
-        fused_slice.fused_burst.launches += self.per_replay
-        st_out, in_out, steps = self.out
-        return (_rebuild(st, map(self._own, _flat(st_out))),
-                _rebuild(inbox, (t.clone() for t in _flat(in_out))),
-                steps.clone())
+        with trace.span("occl.chunk", device=self.graphed, units=k):
+            if k != self.chunk or not self.graphed:
+                self.eager_supersteps += k
+                return self.bodies(st, inbox, k)
+            if self.graph is None:
+                out = self.bodies(st, inbox, k)
+                self.eager_supersteps += k
+                self._capture(*out[:2])
+                return out
+            for dst, src in zip(self.static, _flat((st, inbox))):
+                if dst is not src:
+                    dst.copy_(src)
+            self.graph.replay()
+            self.graph_replays += 1
+            self.graph_supersteps += k
+            fused_slice.fused_burst.launches += self.per_replay
+            st_out, in_out, steps = self.out
+            return (_rebuild(st, map(self._own, _flat(st_out))),
+                    _rebuild(inbox, (t.clone() for t in _flat(in_out))),
+                    steps.clone())
 
     def prime(self, st: DaemonState, inbox: Mailbox) -> None:
         """Warm up and capture a sim chunk without advancing anything: the
@@ -530,15 +550,77 @@ class _ChunkRunner:
         in_in = _rebuild(inbox, (t.clone() for t in _flat(inbox)))
         self.static = _flat((st_in, in_in))
         launches = fused_slice.fused_burst.launches
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self.bodies(st_in, in_in, self.chunk)
+        # keep_graph: the captured cudaGraph_t (host-side node list, no
+        # device memory) outlives the capture so its nodes can be counted;
+        # it is instantiated right away, as a plain capture would be.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # No garbage collection while capturing: a dead runtime's graph
+        # freed mid-capture invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self.bodies(st_in, in_in, self.chunk)
+        finally:
+            if collecting:
+                gc.enable()
         self.per_replay = fused_slice.fused_burst.launches - launches
         fused_slice.fused_burst.launches = launches
         if self.per_replay <= 0:
             raise RuntimeError("the captured superstep chunk launches no "
                                "fused_burst kernel")
+        self.kernel_nodes = graph_kernel_nodes(graph)
+        graph.instantiate()
         self.graph = graph
+        self.graph_captures += 1
+
+
+_KERNEL_NODE = 0        # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def graph_kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` built with
+    ``keep_graph=True``, read from the graph itself through the driver API
+    (``cuGraphGetNodes`` / ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphNodeGetType.restype = ctypes.c_int
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    kind = ctypes.c_int(0)
+    for node in nodes[:n.value]:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == _KERNEL_NODE
+    return kernels
+
+
+def chunk_stats(ticker) -> dict:
+    """The host counters of a ticker's chunk runners (one per tick size),
+    summed; ``graph_kernel_nodes`` and ``graph_replays_by_tick`` map each
+    captured tick size to its graph's kernel node count and replays."""
+    runs = ticker._runners
+    out = {f: sum(getattr(r, f) for r in runs.values())
+           for f in ("graph_captures", "graph_replays", "graph_supersteps",
+                     "eager_supersteps")}
+    captured = {k: r for k, r in runs.items() if r.kernel_nodes is not None}
+    out["graph_kernel_nodes"] = {k: r.kernel_nodes
+                                 for k, r in captured.items()}
+    out["graph_replays_by_tick"] = {k: r.graph_replays
+                                    for k, r in captured.items()}
+    return out
 
 
 def _load_mailbox(st: DaemonState) -> Mailbox:
@@ -627,18 +709,21 @@ def build_sim_daemon(cfg: OcclConfig, ticker: SimTicker) -> Callable:
     limit = cfg.superstep_budget + 1
 
     def daemon(st: DaemonState) -> DaemonState:
-        st = launch_prologue(st)
-        inbox = _load_mailbox(st)
-        total = torch.zeros((), dtype=torch.int32, device=st.epoch.device)
-        done = 0
-        while done < limit:
-            k = min(chunk, limit - done)
-            st, inbox, steps = ticker.run(st, inbox, k)
-            total = total + steps
-            done += k
-            if not bool(st.global_live[0]):
-                break
-        return _tick_accounting(_store_mailbox(st, inbox), total, True)
+        with trace.span("occl.loop"):
+            st = launch_prologue(st)
+            inbox = _load_mailbox(st)
+            total = torch.zeros((), dtype=torch.int32, device=st.epoch.device)
+            done = 0
+            while done < limit:
+                k = min(chunk, limit - done)
+                st, inbox, steps = ticker.run(st, inbox, k)
+                total = total + steps
+                done += k
+                with trace.span("occl.flag_read"):
+                    live = bool(st.global_live[0])
+                if not live:
+                    break
+            return _tick_accounting(_store_mailbox(st, inbox), total, True)
 
     return daemon
 
@@ -801,18 +886,22 @@ def build_mesh_daemon(cfg: OcclConfig, ticker: MeshTicker) -> Callable:
     limit = cfg.superstep_budget + 1
 
     def daemon(st: ShardedState) -> ShardedState:
-        shards = launch_prologue(st).shards
-        inboxes = tuple(_load_mailbox(s) for s in shards)
-        total = torch.zeros((), dtype=torch.int32, device=ticker.devices[0])
-        done = 0
-        while done < limit:
-            k = min(TICK_CHUNK, limit - done)
-            shards, inboxes, steps = ticker.run(shards, inboxes, k)
-            total = total + steps
-            done += k
-            if not bool(shards[0].global_live[0]):
-                break
-        return ticker.finish(shards, inboxes, total, True)[0]
+        with trace.span("occl.loop"):
+            shards = launch_prologue(st).shards
+            inboxes = tuple(_load_mailbox(s) for s in shards)
+            total = torch.zeros((), dtype=torch.int32,
+                                device=ticker.devices[0])
+            done = 0
+            while done < limit:
+                k = min(TICK_CHUNK, limit - done)
+                shards, inboxes, steps = ticker.run(shards, inboxes, k)
+                total = total + steps
+                done += k
+                with trace.span("occl.flag_read"):
+                    live = bool(shards[0].global_live[0])
+                if not live:
+                    break
+            return ticker.finish(shards, inboxes, total, True)[0]
 
     return daemon
 

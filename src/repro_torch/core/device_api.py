@@ -42,6 +42,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import trace
 from .daemon import TickFlags, _drained, _gate, launch_prologue
 from .errors import EvictionError
 from .state import DaemonState
@@ -259,10 +260,13 @@ class DeviceApi:
         [] bool tensor) holds or ``max_iters`` slices elapse (bounded so a
         missing peer submission cannot hang the step).  One host read of
         ``done_fn`` per slice."""
-        for _ in range(max_iters):
-            if bool(done_fn(st)):
-                break
-            st, _ = self.tick(st, chunk, barrier=barrier)
+        with trace.span("occl.loop"):
+            for _ in range(max_iters):
+                with trace.span("occl.flag_read"):
+                    done = bool(done_fn(st))
+                if done:
+                    break
+                st, _ = self.tick(st, chunk, barrier=barrier)
         return st
 
     def drain(self, st: DaemonState, chunk: int = 16,

@@ -40,7 +40,7 @@ import torch
 from .algos import build_plan, default_hierarchy, select_algo
 from .config import OcclConfig, ReduceOp
 from .daemon import (MeshTicker, SimTicker, build_mesh_daemon,
-                     build_sim_daemon, launch_prologue)
+                     build_sim_daemon, chunk_stats, launch_prologue)
 from .errors import (ConnDepthWarning, DeadlockTimeout, EvictionError,
                      RegistrationClosed)
 from .handles import CollectiveHandle
@@ -52,6 +52,7 @@ from .primitives import (
     io_chunked,
 )
 from . import recorder as _recorder
+from . import trace
 from .sqcq import SQE, HostQueues
 from .staging import StagingEngine
 from .state import DaemonState, init_state, resolve_device, resolve_mesh
@@ -124,8 +125,9 @@ class OcclRuntime:
         self.queues = HostQueues(cfg)
         self.launches = 0
         # Per-launch bookkeeping (relaunch observability): one record per
-        # launch_once with the device epoch, the supersteps the launch ran,
-        # the slices it moved and the completions it reconciled.  Bounded:
+        # launch_once with the supersteps the launch ran, the slices it
+        # moved and the completions it reconciled (the device's launch
+        # counter is ``stats()["epoch"]``).  Bounded:
         # a long-lived runtime relaunches indefinitely, so only the most
         # recent window is kept (aggregates live in the device counters).
         self.launch_history: collections.deque = collections.deque(
@@ -755,26 +757,30 @@ class OcclRuntime:
         to the one-shot launch for any ``tick_k >= 1``."""
         self._ensure_built()
         self._flush_staged()
-        prev_slices = int(self._state.slices_moved.sum())
+        prev_slices = self._state.slices_moved.sum()
         st = self.queues.pack_sq(self._state)
         if tick_k is None:
             st = self._daemon(st)
         else:
             tick = self.tick_fn(barrier=True)
-            st = launch_prologue(st)
-            while True:
-                st, flags = tick(st, int(tick_k))
-                if not bool(flags.live):
-                    break
+            with trace.span("occl.loop"):
+                st = launch_prologue(st)
+                while True:
+                    st, flags = tick(st, int(tick_k))
+                    with trace.span("occl.flag_read"):
+                        live = bool(flags.live)
+                    if not live:
+                        break
         self.launches += 1
         self._state = st
         fired = self.queues.reconcile(st)
-        self.launch_history.append({
-            "epoch": int(st.epoch.max()),
-            "launch_steps": int(st.launch_steps.max()),
-            "slices_moved": int(st.slices_moved.sum()) - prev_slices,
-            "completions": fired,
-        })
+        # One device-to-host transfer for the launch's two scalars.
+        steps, moved = torch.stack([
+            st.launch_steps.max().to(torch.int64),
+            st.slices_moved.sum() - prev_slices]).tolist()
+        self.launch_history.append({"launch_steps": steps,
+                                    "slices_moved": moved,
+                                    "completions": fired})
         return fired
 
     def drive(self, max_launches: int = 64,
@@ -1165,6 +1171,11 @@ class OcclRuntime:
             # Writes that took the mesh's sharded placement (one row copy
             # per rank of a dense all-ranks block).
             "staging_sharded_flushes": self._staging.sharded_flushes,
+            "staging_read_bytes": self._staging.read_bytes,
+            # Chunk runners' host counters (daemon._ChunkRunner): captures,
+            # replays, supersteps replayed / run eagerly, and per captured
+            # tick size its graph's kernel nodes and its replays.
+            **chunk_stats(self._ticker),
             "flight_recorder": _recorder.export_record(self._state,
                                                        self.cfg),
         }

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import trace
 from .config import OcclConfig
 from .state import DaemonState, ShardedState
 from .tables import StaticTables
@@ -125,11 +126,13 @@ class StagingEngine:
         self._host_dtype = np.dtype(_HOST_DTYPES[cfg.dtype])
         self._write_plans: dict = {}
         self._read_plans: dict = {}
-        # Flush observability: writes and payload bytes shipped, and how
-        # many writes took the mesh's sharded placement.
+        # Flush observability: writes and payload bytes shipped, how many
+        # writes took the mesh's sharded placement, and the bytes reads
+        # brought back.
         self.flush_writes = 0
         self.flush_bytes = 0
         self.sharded_flushes = 0
+        self.read_bytes = 0
 
     # -- writes ----------------------------------------------------------
     def _write_plan(self, sig) -> _WritePlan:
@@ -187,6 +190,11 @@ class StagingEngine:
         items = list(items)
         if not items:
             return state
+        with trace.span("occl.flush"):
+            return self._write(state, items, owned)
+
+    def _write(self, state: DaemonState, items: list,
+               owned: bool) -> DaemonState:
         datas = [data if owned else self.snapshot(cid, data)
                  for _, cid, data, _ in items]
         # Stable (rank, base) sort: duplicate-region writes keep caller
@@ -264,6 +272,10 @@ class StagingEngine:
         keys = list(keys)
         if not keys:
             return {}
+        with trace.span("occl.read"):
+            return self._read(state, keys)
+
+    def _read(self, state: DaemonState, keys: list) -> dict:
         plan = self._read_plan(
             tuple(sorted(keys, key=lambda k: (k[0], k[2]))))
         if isinstance(state, ShardedState):
@@ -278,6 +290,7 @@ class StagingEngine:
             heap = state.heap_out
             packed = _to_host([heap[rank, off:off + span]
                                for rank, off, span in plan.merged])
+        self.read_bytes += packed.nbytes
         out = {}
         for rank, cid, base in keys:
             pos, n, unpad = plan.slot_by_key[(rank, cid, base)]
