@@ -5,8 +5,8 @@
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. prints the card's name and power limit (``nvidia-smi``) and builds both
-   CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, started
+1. prints the card's name and power limit (``nvidia-smi``) and builds the
+   CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc`` each, started
    together);
 2. holds ``fused_burst`` (the superstep's whole slice burst, the main
    path's kernel) bit for bit against its plain PyTorch version on the
@@ -25,6 +25,14 @@ Phases (each raises on failure; the script then exits non-zero):
    heaps (flat offsets past 2^31); then the same
    for the ``[N, S]``
    ``fused_primitive`` entry (no main-path caller), timed also eagerly;
+   then the sim superstep's kernels (``fused_superstep``: select, the
+   burst, finish) against the plain body on the card, on the states of
+   whole launches at the flat real-size cell's shape (8x2x1x8, K=32,
+   slice 1024), the ViT cell's (4x8x1x8, K=24, slice 1024, PRIORITY with
+   preemption; float32 and bfloat16) and the full-width MoE cell's
+   (4x10x1x1, K=8, slice 8192): every state and mailbox leaf bitwise at
+   the first supersteps, every 2048th and the first not-live one (their
+   times come in phase 8);
 3. holds ``chunk_combine`` bit for bit against its plain version at T in
    {8, 1000, 5000, 2^22}, aligned and at an odd storage offset, float32 and
    bfloat16, ops 0..3, NaN and +/-inf entries; times the kernel, the plain
@@ -33,7 +41,8 @@ Phases (each raises on failure; the script then exits non-zero):
    kernel and ``torch.add`` in turns (kernel, add, add, kernel; five
    rounds) with their spread;
 4. the main paths, each driven with the kernel launch counts set to 0 just
-   before it and read just after:
+   before it and read just after (a sim path must launch exactly two
+   superstep kernels per ``fused_burst``, a mesh path none):
    a. the adversarial-orders workload: ``repro_torch.examples.
       adversarial_orders`` (``run_static_order`` proves the single-FIFO
       baseline deadlocks, then the port's runtime completes it: 3486
@@ -195,7 +204,9 @@ Phases (each raises on failure; the script then exits non-zero):
    time against device kernel time per superstep, the device's idle share,
    the 15 kernels that take the most device time, the chain relink's
    share; the ``fused_burst`` counter's rise in each launch must equal the
-   profiler's count of that kernel.  The profiles run last: a step run in
+   profiler's count of that kernel; then the superstep kernels' device
+   time per launch over 256 live supersteps at each of phase 2's shapes,
+   beside a bound from the bytes each moves.  The profiles run last: a step run in
    the same process after the profiler has run paid more wall per
    superstep;
 9. the script's total seconds, the card line again, a
@@ -745,6 +756,239 @@ def full_heap_check(rng, payload, heap_in, heap_out, R, L, B, SL, C, K, H,
           f"bitwise equal to plain on the whole {R} x {H} heap ({R * H} "
           f"elements) in {FULL_HEAP_CHECKS} cases")
     return err
+
+
+# The superstep kernels' shapes: (name, config, (kind, n_elems) per
+# collective).  "flat" is the flat real-size cell (R=8, K=32, B=8, slice
+# 1024; two buckets in opposite orders: 54944 preempts); "vit" the ViT cell's
+# runtime (R=4, C=8, K=24, B=8, slice 1024, PRIORITY with preemption: 4 KB
+# rows, 8 rows a lane) over eight buckets in seeded orders and priorities,
+# in float32 and bfloat16; "moe" the full-width MoE cell's (R=4, C=10, K=8,
+# slice 8192: 32 KB rows) over its dispatch and combine all-to-alls and
+# four of each per stream.  Heaps are cut to the collectives' size: the
+# superstep kernels never touch them (the burst does).
+SUPERSTEP_SHAPES = (
+    ("flat", dict(REAL), (("ALL_REDUCE", REAL_BUCKET),) * 2),
+    ("vit", dict(n_ranks=4, max_colls=8, max_comms=1, slice_elems=1024,
+                 conn_depth=24, burst_slices=8, heap_elems=1 << 23,
+                 sq_len=64, order_policy="PRIORITY", priority_preempts=True,
+                 superstep_budget=1 << 16),
+     tuple(("ALL_REDUCE", 1 << (17 + i % 3)) for i in range(8))),
+    ("vit bfloat16", dict(n_ranks=4, max_colls=8, max_comms=1,
+                          slice_elems=1024, conn_depth=24, burst_slices=8,
+                          heap_elems=1 << 23, sq_len=64,
+                          order_policy="PRIORITY", priority_preempts=True,
+                          superstep_budget=1 << 16, dtype="bfloat16"),
+     tuple(("ALL_REDUCE", 1 << (17 + i % 3)) for i in range(8))),
+    ("moe", dict(n_ranks=4, max_colls=10, max_comms=1, slice_elems=8192,
+                 conn_depth=8, heap_elems=1 << 24,
+                 superstep_budget=1 << 16),
+     (("ALL_TO_ALL", 1 << 21),) * 2 + (("ALL_TO_ALL", 1 << 19),) * 8))
+# Supersteps at which the kernel superstep is held to the plain one: the
+# first few, then every SUPERSTEP_EVERY-th, and the first not-live body.
+SUPERSTEP_EARLY = (0, 1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610)
+SUPERSTEP_EVERY = 2048
+SUPERSTEP_MAX = (1 << 16) + 2  # a launch ends by its budget at the latest
+SUPERSTEP_FROM = 64            # the profiled stretch starts here
+SUPERSTEP_PROFILED = 256       # supersteps under the profiler per shape
+SUPERSTEP_KERNELS = ("superstep_select_kernel", "superstep_finish_kernel")
+
+
+def superstep_runtime(core, cfg_kw: dict, colls, device, seed: int):
+    """A runtime of ``colls`` on the ring of every rank, flushed: each
+    collective one seeded priority, each rank's submissions in a seeded
+    order (with two collectives, opposite orders on odd and even ranks);
+    returns (cfg, rt)."""
+    kw = dict(cfg_kw)
+    if isinstance(kw.get("order_policy"), str):
+        kw["order_policy"] = core.OrderPolicy[kw["order_policy"]]
+    cfg = core.OcclConfig(**kw)
+    rt = core.OcclRuntime(cfg, device=device)
+    R = cfg.n_ranks
+    world = rt.communicator(list(range(R)))
+    ids = [rt.register(getattr(core.CollKind, kind), world, n_elems=n)
+           for kind, n in colls]
+    rt._ensure_built()
+    rng = np.random.RandomState(seed)
+    prio = rng.randint(-3, 4, len(ids))
+    for r in range(R):
+        order = (rng.permutation(len(ids)) if len(ids) > 2
+                 else ([0, 1] if r % 2 == 0 else [1, 0]))
+        for i in order:
+            n = int(rt._tables.in_log[ids[i]])
+            rt.submit(r, ids[i], prio=int(prio[i]),
+                      data=rng.randn(n).astype(np.float32))
+    rt._flush_staged()
+    return cfg, rt
+
+
+def superstep_start(i: int, device):
+    """Shape i of ``SUPERSTEP_SHAPES`` at its launch's start: (name, cfg,
+    rt, tables, kernel step, plain body, state, mailbox), state and
+    mailbox contiguous copies."""
+    from repro_torch import core
+    from repro_torch.core import daemon
+    from repro_torch.core.state import tables_from_numpy
+
+    name, cfg_kw, colls = SUPERSTEP_SHAPES[i]
+    cfg, rt = superstep_runtime(core, cfg_kw, colls, device, seed=26 + i)
+    tables = tables_from_numpy(rt._tables, device)
+    plan = daemon._edge_plan(daemon._relink_edges(rt._tables), device)
+    st = daemon._fresh(daemon.launch_prologue(rt.queues.pack_sq(rt.state)))
+    inbox = daemon._fresh(daemon._load_mailbox(st))
+    return (name, cfg, rt, tables, daemon._sim_step_fn(cfg, plan, device),
+            daemon._sim_body_fn(cfg, plan), st, inbox)
+
+
+def leaves_equal(a, b) -> list:
+    """The fields of two NamedTuples of tensors that differ bitwise."""
+    import torch
+
+    bad = []
+    for f, x, y in zip(a._fields, a, b):
+        if x.is_floating_point():
+            ib = torch.int32 if x.dtype == torch.float32 else torch.int16
+            x, y = x.view(ib), y.view(ib)
+        if x.shape != y.shape or not torch.equal(x, y):
+            bad.append(f)
+    return bad
+
+
+def control_bytes(st, inbox, tables) -> int:
+    """Bytes of the control tables a superstep kernel reads once: the
+    state's and the mailbox's leaves but the payloads and heaps, and the
+    shared and per-rank tables."""
+    skip = ("payload", "heap_in", "heap_out", "fwd_payload")
+    leaves = [t for x in (st, inbox, *tables[:2])
+              for f, t in zip(x._fields, x) if f not in skip]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def phase_fused_superstep(device, card: str) -> None:
+    """The sim superstep's kernels (``fused_superstep``: select, the burst,
+    finish) against the plain body (``daemon._sim_body_fn``) on the card,
+    on real states of whole launches at the main paths' shapes: at each
+    checked superstep both start from copies of the same state and mailbox
+    and every leaf must come out bitwise equal; between checks the kernels
+    advance the launch."""
+    import torch
+    from repro_torch.core import daemon
+
+    checked = 0
+    for i in range(len(SUPERSTEP_SHAPES)):
+        name, cfg, rt, tables, kstep, plain, st, inbox = superstep_start(
+            i, device)
+        steps = torch.zeros((), dtype=torch.int32, device=device)
+        n_checks = moved = 0
+        for k in range(SUPERSTEP_MAX):
+            live = k % 256 or bool(st.global_live[0])
+            if k in SUPERSTEP_EARLY or k % SUPERSTEP_EVERY == 0 or not live:
+                a_st, a_in = daemon._fresh(st), daemon._fresh(inbox)
+                b_st, b_in = daemon._fresh(st), daemon._fresh(inbox)
+                a_st, a_in, steps = kstep(*tables, a_st, a_in, steps)
+                b_st, b_in = plain(*tables, b_st, b_in)
+                bad = leaves_equal(a_st, b_st) + leaves_equal(a_in, b_in)
+                assert not bad, (name, k, bad)
+                moved += int(b_in.fwd_count.sum())
+                n_checks += 1
+                st, inbox = a_st, a_in
+                if not live:
+                    break
+                continue
+            st, inbox, steps = kstep(*tables, st, inbox, steps)
+        ran = int(steps)
+        assert not bool(st.global_live[0]), (name, "still live")
+        assert moved > 0 and ran > 0, (name, moved, ran)
+        print(f"[kernels] fused_superstep {name} R={cfg.n_ranks} "
+              f"C={cfg.max_colls} L={cfg.max_comms} B={cfg.burst_slices} "
+              f"K={cfg.conn_depth} SL={cfg.slice_elems} {cfg.dtype}: "
+              f"{ran} supersteps to the end of the launch "
+              f"({int(st.preempts.sum())} preempts), every leaf bitwise "
+              f"equal to the plain body at {n_checks} supersteps [{card}]")
+        checked += n_checks
+        del rt, tables, st, inbox, a_st, a_in, b_st, b_in
+        free_card()
+    print(f"[kernels] fused_superstep: kernel superstep bitwise equal to the "
+          f"plain body at {checked} supersteps over "
+          f"{[s[0] for s in SUPERSTEP_SHAPES]}")
+
+
+def phase_superstep_profile(card: str) -> list:
+    """Each superstep kernel's device time per launch (``torch.profiler``)
+    over ``SUPERSTEP_PROFILED`` live supersteps of each shape's launch,
+    from its ``SUPERSTEP_FROM``-th, beside a bound from the bytes it moves;
+    returns the ``kernels`` entries of select and finish."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda")
+    by_shape = {}
+    for i in range(len(SUPERSTEP_SHAPES)):
+        name, cfg, rt, tables, kstep, _, st, inbox = superstep_start(
+            i, device)
+        steps = torch.zeros((), dtype=torch.int32, device=device)
+        for _ in range(SUPERSTEP_FROM):
+            st, inbox, steps = kstep(*tables, st, inbox, steps)
+        row = cfg.slice_elems * st.payload.element_size()
+        ctrl = control_bytes(st, inbox, tables)
+        rows_in = torch.zeros((), dtype=torch.int64, device=device)
+        rows_out = torch.zeros((), dtype=torch.int64, device=device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SUPERSTEP_PROFILED):
+                rows_in += inbox.fwd_count.sum()
+                st, inbox, steps = kstep(*tables, st, inbox, steps)
+                rows_out += inbox.fwd_count.sum()
+            torch.cuda.synchronize()
+        # Every profiled body ran live and moved payload.
+        assert bool(st.global_live[0]) and int(rows_in) > 0, (name, "idle")
+        per = {}
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            for kname in SUPERSTEP_KERNELS:
+                if kname in e.key:
+                    us = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                    per[kname] = (e.count, us / e.count / 1e3)
+        assert set(per) == set(SUPERSTEP_KERNELS), (name, per)
+        # Bytes: the control tables read once, and the payload rows each
+        # kernel moves (read and written): select commits the arriving
+        # rows into the connector, finish sends the burst's rows on.
+        n = SUPERSTEP_PROFILED
+        moves = {"superstep_select_kernel": int(rows_in) / n,
+                 "superstep_finish_kernel": int(rows_out) / n}
+        res = {"shape": [cfg.n_ranks, cfg.max_colls, cfg.max_comms,
+                         cfg.burst_slices, cfg.conn_depth, cfg.slice_elems],
+               "dtype": cfg.dtype}
+        for kname in SUPERSTEP_KERNELS:
+            count, ms = per[kname]
+            nbytes = ctrl + 2 * moves[kname] * row
+            res[kname] = {"ms": ms, "profiled_launches": count,
+                          "rows": moves[kname], "bytes": nbytes,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            print(f"[profile] {kname} {name}: {ms:.6f} ms per launch "
+                  f"({count} of {n} launches seen), {moves[kname]:.2f} "
+                  f"payload rows of {row} B moved a launch, bound "
+                  f"{res[kname]['bound_ms']:.7f} ms (bytes, "
+                  f"{nbytes / 1e3:.1f} kB) [{card}]")
+        by_shape[name] = res
+        del rt, tables, st, inbox, prof
+        free_card()
+    flat = by_shape["flat"]
+    return [{"name": kname.replace("_kernel", ""), "route": "cuda",
+             "source": "src/repro_torch/csrc/superstep.cu",
+             "replaces": "none: the reference's superstep (src/repro/core/"
+                         "scheduler.py rank_superstep, core/daemon.py "
+                         "_sim_body_fn) is jnp that XLA fuses",
+             "shape": flat["shape"], "dtype": "float32", "max_abs_err": 0.0,
+             "ms": flat[kname]["ms"], "bound_ms": flat[kname]["bound_ms"],
+             "bound_by": "bytes", "plain_ms": None, "library_ms": None,
+             "by_shape": {n: dict(r[kname], shape=r["shape"],
+                                  dtype=r["dtype"])
+                          for n, r in by_shape.items()}}
+            for kname in SUPERSTEP_KERNELS]
 
 
 def combine_inputs(t: int, offset: int, dtype, device, seed: int):
@@ -3460,6 +3704,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_combine as cc
     from repro_torch.kernels import fused_slice as fs
+    from repro_torch.kernels import superstep as ss
 
     device = torch.device("cuda")
     card = card_line()
@@ -3467,24 +3712,30 @@ def main(argv=None) -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all([fs.LIBRARY, cc.LIBRARY])
+    _build.build_all([fs.LIBRARY, cc.LIBRARY, ss.LIBRARY])
     print(f"[kernels] built fused_primitive.cu (fused_burst, "
-          f"fused_primitive) and chunk_combine.cu in "
+          f"fused_primitive), chunk_combine.cu and superstep.cu in "
           f"{time.perf_counter() - t0:.1f} s (sm_90a, one nvcc each)")
     print_ptxas(fs.LIBRARY)
     print_ptxas(cc.LIBRARY)
+    print_ptxas(ss.LIBRARY)
 
     burst_entry = phase_fused_burst(device)
+    phase_fused_superstep(device, card)
     fused_entry = phase_fused_primitive(device)
     combine_entry = phase_chunk_combine(device)
 
-    counters = (fs.fused_burst, fs.fused_primitive, cc.chunk_combine)
+    counters = (fs.fused_burst, fs.fused_primitive, cc.chunk_combine,
+                ss.fused_superstep)
     paths = {}
 
-    def main_path(name, fn, fabric=True):
+    def main_path(name, fn, fabric=True, mesh=False):
         """Drive ``fn`` with the launch counts set to 0 first; a path over
         the OCCL fabric must launch ``fused_burst``, one without (the
-        checkpoint path) must launch no kernel."""
+        checkpoint path) must launch no kernel.  Every sim superstep on the
+        card is the superstep kernels around one burst, so a sim path
+        launches exactly two of them per ``fused_burst``; the mesh backend
+        runs the scheduler's ops and launches none."""
         for k in counters:
             k.launches = 0
         t0 = time.perf_counter()
@@ -3492,12 +3743,14 @@ def main(argv=None) -> int:
         paths[name] = tuple(k.launches for k in counters)
         print(f"[path] {name}: fused_burst launches {paths[name][0]}, "
               f"fused_primitive launches {paths[name][1]}, chunk_combine "
-              f"launches {paths[name][2]}; {time.perf_counter() - t0:.1f} s "
-              f"[{card}]")
-        if fabric:
-            assert paths[name][0] > 0, (name, paths[name])
-        else:
-            assert paths[name] == (0, 0, 0), (name, paths[name])
+              f"launches {paths[name][2]}, superstep kernel launches "
+              f"{paths[name][3]}; {time.perf_counter() - t0:.1f} s [{card}]")
+        if not fabric:
+            assert paths[name] == (0, 0, 0, 0), (name, paths[name])
+            return res
+        assert paths[name][0] > 0, (name, paths[name])
+        want = 0 if mesh else 2 * paths[name][0]
+        assert paths[name][3] == want, (name, paths[name])
         return res
 
     adv = main_path("adversarial", lambda: phase_adversarial(device))
@@ -3515,13 +3768,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     twin = main_path("mesh twin (sim)", lambda: mesh_runs(device, card))
     mesh = main_path("mesh", lambda: mesh_runs(
-        device, card, [device] * MESH_CELL["n_ranks"]))
+        device, card, [device] * MESH_CELL["n_ranks"]), mesh=True)
     check_mesh(twin, mesh)
     assert paths["mesh"][0] >= MESH_CELL["n_ranks"] * mesh["real"][
         "supersteps"], paths["mesh"]
     mixed = [device] * 4 + [torch.device("cpu")] * 4
     two = main_path("mesh over cuda and cpu", lambda: mesh_runs(
-        device, card, mixed, real=False))
+        device, card, mixed, real=False), mesh=True)
     check_mesh(twin, two)
     # The four CUDA ranks launch fused_burst once each per superstep.
     assert paths["mesh over cuda and cpu"][0] >= 4 * sum(
@@ -3592,11 +3845,17 @@ def main(argv=None) -> int:
     vit["profile"] = phase_vit_profile(vit.pop("cfg"), max(vit["buckets"]),
                                        card)
     print("[vit] summary " + json.dumps(vit))
+    superstep_entries = phase_superstep_profile(card)
 
     entries = (burst_entry, fused_entry, combine_entry)
     for i, entry in enumerate(entries):
         entry["launches"] = sum(p[i] for p in paths.values())
         entry["launches_by_path"] = {k: p[i] for k, p in paths.items()}
+    # fused_superstep.launches counts select and finish, one each a call.
+    for entry in superstep_entries:
+        entry["launches"] = sum(p[3] for p in paths.values()) // 2
+        entry["launches_by_path"] = {k: p[3] // 2 for k, p in paths.items()}
+    entries = (burst_entry, *superstep_entries, fused_entry, combine_entry)
     fused_entry["note"] = ("the [N, S] counterpart of the Pallas contract; "
                            "no runtime path calls it since the scheduler's "
                            "burst is one fused_burst launch")

@@ -33,9 +33,11 @@ leaf is selected back — so ``supersteps``, ``launch_steps`` and every
 trajectory are bit-identical to the reference's, whatever ``k`` is (the
 batching invariance of the reference's tick contract).  The same property
 lets a launch on the card replay each full chunk as one CUDA graph
-(:class:`_ChunkRunner`): a superstep is several hundred small kernels (R
-times as many on the mesh), and issuing them one by one from the host
-would bound the daemon.
+(:class:`_ChunkRunner`).  On the card a sim superstep is three kernels
+(:func:`~repro_torch.kernels.superstep.fused_superstep`: select, the burst,
+finish); the mesh's runs the scheduler's PyTorch ops, several hundred small
+kernels per rank, which the graph keeps from bounding the daemon on the
+host's launch rate.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .config import OcclConfig
+from .config import (QUEUE_KEY_DEMAND_STRIDE, QUEUE_KEY_PRIO_STRIDE,
+                     OcclConfig, OrderPolicy)
 from . import primitives as P
+from . import recorder
 from . import trace
 from .scheduler import (
     LocalTables,
@@ -59,10 +63,12 @@ from .scheduler import (
 )
 from .state import DaemonState, ShardedState
 from .tables import StaticTables
-from ..kernels import fused_slice
+from ..kernels import fused_slice, superstep
 
 # Supersteps a launch runs between two host reads of the live flag.
 TICK_CHUNK = 16
+# The kernel wrappers whose launches a chunk's replay adds.
+_COUNTED = (fused_slice.fused_burst, superstep.fused_superstep)
 
 
 def _dev(a, device, dtype=None) -> torch.Tensor:
@@ -439,13 +445,47 @@ def _sim_body_fn(cfg: OcclConfig, edge_plan=()) -> Callable:
     return body
 
 
-def _run_bodies(body, sh, lt, fwd_src, rev_src, st, inbox, k: int):
-    """k gated bodies; returns (state, inbox, supersteps actually run)."""
-    steps = torch.zeros((), dtype=torch.int32, device=st.supersteps.device)
-    for _ in range(k):
+def _superstep_settings(cfg: OcclConfig) -> superstep.Settings:
+    """The superstep kernels' scalar settings for ``cfg``."""
+    return superstep.Settings(
+        int(cfg.flight_recorder), int(cfg.order_policy == OrderPolicy.PRIORITY),
+        int(cfg.priority_preempts), cfg.prio_aging_quantum,
+        cfg.prio_aging_cap, int(cfg.stickiness), int(cfg.demand_steering),
+        int(cfg.queue_conditional_stall), cfg.spin_base, cfg.spin_decr,
+        cfg.spin_boost, cfg.spin_min, cfg.spin_max, cfg.quit_threshold,
+        cfg.superstep_budget, QUEUE_KEY_DEMAND_STRIDE, QUEUE_KEY_PRIO_STRIDE,
+        int(P.Prim.NULL), recorder.EV_SUBMIT, recorder.EV_STAGE_DONE,
+        recorder.EV_PREEMPT, recorder.EV_CHAIN_HANDOFF, recorder.EV_CQE)
+
+
+def _sim_step_fn(cfg: OcclConfig, edge_plan, device) -> Callable:
+    """``step(sh, lt, fwd_src, rev_src, st, inbox, steps) -> (st, inbox,
+    steps)``: ONE gated sim superstep, ``steps`` counting it where the
+    fabric was live (rank 0's flag).  On the card the superstep kernels
+    (:func:`~repro_torch.kernels.superstep.fused_superstep`), which update
+    the state, the mailbox and ``steps`` IN PLACE, then the relink on the
+    hand-offs they report; elsewhere :func:`_sim_body_fn`'s body, which
+    returns new tensors."""
+    if torch.device(device).type == "cuda":
+        settings = _superstep_settings(cfg)
+        chains = bool(edge_plan)
+
+        def step(sh, lt, fwd_src, rev_src, st, inbox, steps):
+            fired = superstep.fused_superstep(settings, sh, lt, fwd_src,
+                                              rev_src, st, inbox, steps,
+                                              chains)
+            if chains:
+                _apply_relink(edge_plan, fired, st.heap_in, st.heap_out)
+            return st, inbox, steps
+
+        return step
+    body = _sim_body_fn(cfg, edge_plan)
+
+    def step(sh, lt, fwd_src, rev_src, st, inbox, steps):
         steps = steps + st.global_live[0].to(torch.int32)
-        st, inbox = body(sh, lt, fwd_src, rev_src, st, inbox)
-    return st, inbox, steps
+        return (*body(sh, lt, fwd_src, rev_src, st, inbox), steps)
+
+    return step
 
 
 def _flat(x) -> list:
@@ -453,6 +493,14 @@ def _flat(x) -> list:
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for v in x for t in _flat(v)]
+
+
+def _fresh(x, keep=()):
+    """A contiguous copy of a NamedTuple of tensors, but for the fields in
+    ``keep``."""
+    return type(x)(*(t if f in keep
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for f, t in zip(x._fields, x)))
 
 
 def _rebuild(like, leaves):
@@ -485,12 +533,15 @@ class _ChunkRunner:
     everything when ``graphed`` is false (CPU tensors, or a mesh over
     several devices: a CUDA graph spans one device).  Replay executes
     exactly the captured bodies, so trajectories are bit-identical to
-    eager execution.
+    eager execution.  Where the bodies update their inputs IN PLACE
+    (``in_place``: the sim's superstep kernels), eager bodies start from
+    contiguous copies, so a caller's tensors stay as they were (the heaps
+    excepted).
 
-    The ``fused_burst`` wrapper counts its launches while the chunk is
-    captured; that count (the kernel launches the graph holds) is taken
-    off the counter again, since the capture itself runs nothing, and
-    added once per replay.
+    The ``fused_burst`` and ``fused_superstep`` wrappers count their
+    launches while the chunk is captured; those counts (the kernel launches
+    the graph holds) are taken off the counters again, since the capture
+    itself runs nothing, and added once per replay.
 
     Host counters (no device read): ``graph_captures``, ``graph_replays``,
     and the bodies run by replays (``graph_supersteps``) and eagerly
@@ -498,24 +549,28 @@ class _ChunkRunner:
     first chunk before its capture); the warm-up bodies of :meth:`prime`
     run from a not-live state and count as neither.  ``kernel_nodes`` is
     the captured graph's kernel node count, read from the graph once at
-    capture (:func:`graph_kernel_nodes`).  Each call is one ``occl.chunk``
-    span of ``k`` units (:mod:`~repro_torch.core.trace`), device-timed
-    when ``graphed``."""
+    capture (:func:`graph_kernel_nodes`); ``superstep_launches`` the
+    ``fused_superstep`` kernel launches of the bodies it ran or replayed.
+    Each call is one ``occl.chunk`` span of ``k`` units
+    (:mod:`~repro_torch.core.trace`), device-timed when ``graphed``."""
 
-    def __init__(self, bodies: Callable, chunk: int, graphed: bool):
+    def __init__(self, bodies: Callable, chunk: int, graphed: bool,
+                 in_place: bool = False):
         self.bodies, self.chunk, self.graphed = bodies, chunk, graphed
+        self.in_place = in_place
         self.graph = None
         self.kernel_nodes = None
         self.graph_captures = self.graph_replays = 0
         self.graph_supersteps = self.eager_supersteps = 0
+        self.superstep_launches = 0
 
     def __call__(self, st, inbox, k: int):
         with trace.span("occl.chunk", device=self.graphed, units=k):
             if k != self.chunk or not self.graphed:
                 self.eager_supersteps += k
-                return self.bodies(st, inbox, k)
+                return self._eager(st, inbox, k)
             if self.graph is None:
-                out = self.bodies(st, inbox, k)
+                out = self._eager(st, inbox, k)
                 self.eager_supersteps += k
                 self._capture(*out[:2])
                 return out
@@ -525,11 +580,21 @@ class _ChunkRunner:
             self.graph.replay()
             self.graph_replays += 1
             self.graph_supersteps += k
-            fused_slice.fused_burst.launches += self.per_replay
+            for wrapper, n in zip(_COUNTED, self.per_replay):
+                wrapper.launches += n
+            self.superstep_launches += self.per_replay[1]
             st_out, in_out, steps = self.out
             return (_rebuild(st, map(self._own, _flat(st_out))),
                     _rebuild(inbox, (t.clone() for t in _flat(in_out))),
                     steps.clone())
+
+    def _eager(self, st, inbox, k: int):
+        if self.in_place:
+            st, inbox = _fresh(st, keep=("heap_in", "heap_out")), _fresh(inbox)
+        before = superstep.fused_superstep.launches
+        out = self.bodies(st, inbox, k)
+        self.superstep_launches += superstep.fused_superstep.launches - before
+        return out
 
     def prime(self, st: DaemonState, inbox: Mailbox) -> None:
         """Warm up and capture a sim chunk without advancing anything: the
@@ -538,7 +603,9 @@ class _ChunkRunner:
         buffers."""
         if self.graph is None and self.graphed:
             dead = st._replace(global_live=torch.zeros_like(st.global_live))
-            self._capture(*self.bodies(dead, inbox, self.chunk)[:2])
+            launches = self.superstep_launches
+            self._capture(*self._eager(dead, inbox, self.chunk)[:2])
+            self.superstep_launches = launches
 
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         return t if any(t is h for h in self.heaps) else t.clone()
@@ -549,7 +616,7 @@ class _ChunkRunner:
         st_in = _rebuild(st, map(self._own, _flat(st)))
         in_in = _rebuild(inbox, (t.clone() for t in _flat(inbox)))
         self.static = _flat((st_in, in_in))
-        launches = fused_slice.fused_burst.launches
+        launches = [wrapper.launches for wrapper in _COUNTED]
         # keep_graph: the captured cudaGraph_t (host-side node list, no
         # device memory) outlives the capture so its nodes can be counted;
         # it is instantiated right away, as a plain capture would be.
@@ -564,9 +631,11 @@ class _ChunkRunner:
         finally:
             if collecting:
                 gc.enable()
-        self.per_replay = fused_slice.fused_burst.launches - launches
-        fused_slice.fused_burst.launches = launches
-        if self.per_replay <= 0:
+        self.per_replay = [wrapper.launches - n
+                           for wrapper, n in zip(_COUNTED, launches)]
+        for wrapper, n in zip(_COUNTED, launches):
+            wrapper.launches = n
+        if self.per_replay[0] <= 0:
             raise RuntimeError("the captured superstep chunk launches no "
                                "fused_burst kernel")
         self.kernel_nodes = graph_kernel_nodes(graph)
@@ -609,12 +678,14 @@ def graph_kernel_nodes(graph) -> int:
 
 def chunk_stats(ticker) -> dict:
     """The host counters of a ticker's chunk runners (one per tick size),
-    summed; ``graph_kernel_nodes`` and ``graph_replays_by_tick`` map each
-    captured tick size to its graph's kernel node count and replays."""
+    summed (``superstep_launches``: the ``fused_superstep`` kernels they
+    launched, replays included); ``graph_kernel_nodes`` and
+    ``graph_replays_by_tick`` map each captured tick size to its graph's
+    kernel node count and replays."""
     runs = ticker._runners
     out = {f: sum(getattr(r, f) for r in runs.values())
            for f in ("graph_captures", "graph_replays", "graph_supersteps",
-                     "eager_supersteps")}
+                     "eager_supersteps", "superstep_launches")}
     captured = {k: r for k, r in runs.items() if r.kernel_nodes is not None}
     out["graph_kernel_nodes"] = {k: r.kernel_nodes
                                  for k, r in captured.items()}
@@ -643,24 +714,34 @@ class SimTicker:
     shared by a daemon launch, the host-driven tick path
     (``launch_once(tick_k=...)``) and in-step ticks
     (:class:`~repro_torch.core.device_api.DeviceApi`), with one
-    :class:`_ChunkRunner` (one CUDA graph on the card) per tick size."""
+    :class:`_ChunkRunner` (one CUDA graph on the card) per tick size.
+
+    The body is :func:`_sim_step_fn`'s: the superstep kernels on the card
+    (in place), :func:`_sim_body_fn`'s body on the CPU."""
 
     def __init__(self, cfg: OcclConfig, t: StaticTables, device):
         from .state import tables_from_numpy
 
         self.device = torch.device(device)
         self.tables = tables_from_numpy(t, device)
-        self.body = _sim_body_fn(cfg, _edge_plan(_relink_edges(t), device))
+        self.step = _sim_step_fn(cfg, _edge_plan(_relink_edges(t), device),
+                                 device)
         self._runners: dict = {}
 
     def _bodies(self, st: DaemonState, inbox: Mailbox, k: int):
-        return _run_bodies(self.body, *self.tables, st, inbox, k)
+        """k gated bodies; returns (state, inbox, supersteps actually
+        run)."""
+        steps = torch.zeros((), dtype=torch.int32, device=self.device)
+        for _ in range(k):
+            st, inbox, steps = self.step(*self.tables, st, inbox, steps)
+        return st, inbox, steps
 
     def _runner(self, k: int) -> _ChunkRunner:
         run = self._runners.get(k)
         if run is None:
-            run = self._runners[k] = _ChunkRunner(
-                self._bodies, k, self.device.type == "cuda")
+            card = self.device.type == "cuda"
+            run = self._runners[k] = _ChunkRunner(self._bodies, k, card,
+                                                  in_place=card)
         return run
 
     def run(self, st: DaemonState, inbox: Mailbox, k: int):

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import CollKind, OcclConfig, OcclRuntime, OrderPolicy, ReduceOp
+import repro.core as J
 from repro.core import daemon as jdaemon
 from repro.core.scheduler import rank_superstep as j_rank_superstep
 from repro_torch.core import OcclConfig as TConfig
@@ -30,55 +30,16 @@ from repro_torch.core.scheduler import Mailbox as TMailbox
 from repro_torch.core.scheduler import rank_superstep as t_rank_superstep
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-pytestmark = pytest.mark.filterwarnings("ignore::UserWarning")
+import superstep_cases
+from superstep_cases import CAPTURE, CONFIGS, R
 
-CONFIGS = {
-    "b1_fr": dict(burst_slices=1, flight_recorder=True),
-    "b4_nofr": dict(burst_slices=4, flight_recorder=False),
-    "b4_prio": dict(burst_slices=4, order_policy=OrderPolicy.PRIORITY,
-                    priority_preempts=True, prio_aging_quantum=3,
-                    prio_aging_cap=5),
-    "b1_ablate": dict(burst_slices=1, stickiness=False,
-                      demand_steering=False, queue_conditional_stall=False,
-                      recorder_len=3),
-    "b4_bf16": dict(burst_slices=4, dtype="bfloat16",
-                    queue_conditional_stall=False),
-}
-CAPTURE = (0, 3, 7, 12, 18, 25, 33, 42)
-R = 4
+pytestmark = pytest.mark.filterwarnings("ignore::UserWarning")
 
 
 def _workload(cfg_kw):
     """A reference runtime with six collectives on two lanes, submitted in
     seeded per-rank orders (priorities random), flushed and packed."""
-    kw = dict(n_ranks=R, max_colls=6, max_comms=2, slice_elems=4,
-              conn_depth=5, heap_elems=1 << 12, cq_len=8,
-              superstep_budget=1 << 12)
-    kw.update(cfg_kw)
-    cfg = OcclConfig(**kw)
-    rt = OcclRuntime(cfg)
-    a = rt.communicator(range(R))
-    b = rt.communicator(range(1, R))
-    regs = [(CollKind.ALL_REDUCE, a, 40, ReduceOp.SUM, 0),
-            (CollKind.ALL_GATHER, a, 24, ReduceOp.SUM, 0),
-            (CollKind.BROADCAST, a, 30, ReduceOp.SUM, 1),
-            (CollKind.REDUCE_SCATTER, b, 33, ReduceOp.MIN, 0),
-            (CollKind.REDUCE, b, 21, ReduceOp.PROD, 2),
-            (CollKind.ALL_REDUCE, b, 17, ReduceOp.MAX, 0)]
-    ids = [rt.register(k, c, n, op=op, root=root)
-           for k, c, n, op, root in regs]
-    rng = np.random.RandomState(5)
-    for r in range(R):
-        for i in rng.permutation(len(ids)):
-            spec = rt.specs[ids[i]]
-            if r not in spec.comm.members:
-                continue
-            rt._ensure_built()
-            n = int(rt._tables.in_log[ids[i]])
-            rt.submit(r, ids[i], prio=int(rng.randint(-3, 4)),
-                      data=rng.randn(n).astype(np.float32))
-    rt._flush_staged()
-    return cfg, kw, rt
+    return superstep_cases.build_workload(J, cfg_kw)
 
 
 def _np_tree(t):
@@ -112,22 +73,7 @@ def _chain_workload():
     """A composite two-level all-reduce (a device-chained stage sequence on
     derived lanes) beside a flat all-gather, registered on the reference.
     The tables are carried into the port with ``tables_from_numpy``."""
-    kw = dict(n_ranks=R, max_colls=6, max_comms=3, slice_elems=4,
-              conn_depth=5, heap_elems=1 << 12, cq_len=8, burst_slices=2,
-              superstep_budget=1 << 12)
-    cfg = OcclConfig(**kw)
-    rt = OcclRuntime(cfg)
-    two = rt.register(CollKind.ALL_REDUCE, rt.logical_communicator(range(R)),
-                      40, algo="two_level", hierarchy=(2, 2))
-    flat = rt.register(CollKind.ALL_GATHER, rt.communicator(range(R)), 24)
-    rt._ensure_built()
-    rng = np.random.RandomState(9)
-    for r in range(R):
-        for c in ([two, flat] if r % 2 else [flat, two]):
-            n = int(rt._tables.in_log[c])
-            rt.submit(r, c, data=rng.randn(n).astype(np.float32))
-    rt._flush_staged()
-    return cfg, kw, rt
+    return superstep_cases.build_chain_workload(J)
 
 
 @functools.lru_cache(maxsize=None)
