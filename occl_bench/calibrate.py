@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from occl_bench.harness import drivers, manifest, standins
+    from occl_bench.harness import cell, manifest, standins
+    from occl_bench.harness.window import Window, cell_config, free
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -41,7 +42,8 @@ def main(argv=None) -> int:
     man = manifest.load()
     entry = manifest.cell(man, args.workload)
     wl = manifest.workload(args.workload)
-    cfg = drivers.cell_config(manifest.config(man, entry["config"]), wl)
+    cfg = cell_config(manifest.config(man, entry["config"]), wl)
+    drive = manifest.driver(wl["driver"]).run
     seeds = [int(s) for s in args.seeds.split(",") if s]
     stand = [int(s) for s in args.stand_in_seeds.split(",") if s]
 
@@ -54,14 +56,13 @@ def main(argv=None) -> int:
 
     for seed in seeds:
         t0 = time.perf_counter()
-        window = drivers.Window(0.0, args.device)
-        out = drivers.DRIVERS[wl["driver"]](
-            drivers.Ctx(cfg, wl, seed, args.device, window))
+        out = drive(cell.context(cfg, wl, seed, args.device,
+                                 Window(0.0, args.device)))
         out.release()
         emit({"kind": "program", "seed": seed, "readings": out.check(),
               "seconds": time.perf_counter() - t0})
         del out
-        drivers.free()
+        free()
     for seed in stand:
         for kind in standins.kinds(cfg):
             t0 = time.perf_counter()
@@ -69,7 +70,7 @@ def main(argv=None) -> int:
                   "readings": standins.read(cfg, wl, seed, args.device,
                                             kind),
                   "seconds": time.perf_counter() - t0})
-            drivers.free()
+            free()
     return 0
 
 

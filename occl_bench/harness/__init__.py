@@ -1,2 +1,3 @@
-"""The general parts of the benchmark: manifest, feed, drivers, spans,
-the profiled slice, the comparison and the run of one cell."""
+"""The general parts of the benchmark: manifest, window, seeds, spans,
+the profiled slice, the comparison and the run of one cell.  Nothing here
+names a model family."""

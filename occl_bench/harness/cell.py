@@ -8,9 +8,10 @@ import time
 import torch
 
 from ..roofline import flops, peaks
-from . import compare, drivers, manifest
+from . import compare, manifest
 from .profile import SliceProfiler
-from .spans import program_spans
+from .spans import program_spans, sync
+from .window import Ctx, Window, cell_config
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -18,18 +19,33 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 class Tracer:
     """Spans around the program's calls through the window, and one
     profiled slice of the step after it.  The spans stay open through that
-    step (they label the trace's idle gaps) but only the window's count."""
+    step (they label the trace's idle gaps) but only the window's count.
+    With ``program`` the program's own tracer (``core/trace.py``) records
+    through the window too, and ``snapshot`` holds what it recorded."""
 
-    def __init__(self, device):
+    def __init__(self, device, program: bool = False):
+        self.device, self.program = device, program
         self.spans = program_spans(device)
         self.slice = SliceProfiler(device, open_spans=self.spans.open_names)
         self.kept = None
+        self.snapshot = None
 
     def start(self) -> None:
         self.spans.on = True
+        if self.program:
+            from repro_torch.core import trace
+
+            trace.reset()
+            trace.enable()
 
     def stop(self) -> None:
         self.kept = len(self.spans.records)
+        if self.program:
+            from repro_torch.core import trace
+
+            sync(self.device)
+            self.snapshot = trace.snapshot()
+            trace.disable()
 
     def arm(self) -> None:
         self.slice.arm()
@@ -47,11 +63,14 @@ def loaded_forbidden() -> list:
 
 
 def trace_record(cfg: dict, window, tracer: Tracer) -> dict:
+    """What a per-layer reader (``metrics/<name>.py``) gets."""
     sp, n = tracer.spans, tracer.kept
     return {
         "config": cfg, "steps": window.steps, "window_s": window.window_s,
         "supersteps": window.delta("supersteps"),
         "overlap_supersteps": window.delta("overlap_supersteps"),
+        "counters": window.deltas(),
+        "program": tracer.snapshot,
         "spans": {"drive": sp.total("drive", True, n),
                   "flush": sp.total("flush", upto=n),
                   "read": sp.total("read", upto=n),
@@ -64,20 +83,31 @@ def trace_record(cfg: dict, window, tracer: Tracer) -> dict:
     }
 
 
+def context(cfg: dict, wl: dict, seed: int, device, window) -> Ctx:
+    """A driver's context: the cell's configuration and traffic, with the
+    family and the reference the configuration names."""
+    return Ctx(cfg, wl, seed, device, window,
+               manifest.family(cfg["family"]),
+               manifest.reference(cfg["reference"]))
+
+
 def run(cfg: dict, wl: dict, seed: int, seconds: float, device,
         t_start: float, metrics=(), trace: bool = False, log=None) -> dict:
     """Run the cell; returns the result's fields (without the import
     check, which the caller makes last)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    cfg = drivers.cell_config(cfg, wl)
+    cfg = cell_config(cfg, wl)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    tracer = Tracer(device) if trace else None
-    window = drivers.Window(seconds, device, tracer)
+    readers = {m["name"]: manifest.reader(m["name"]) for m in metrics}
+    tracer = Tracer(device, any(getattr(r, "PROGRAM_TRACE", False)
+                                for r in readers.values())) \
+        if trace else None
+    window = Window(seconds, device, tracer)
     try:
-        out = drivers.DRIVERS[wl["driver"]](
-            drivers.Ctx(cfg, wl, seed, device, window))
+        out = manifest.driver(wl["driver"]).run(context(cfg, wl, seed,
+                                                        device, window))
     finally:
         if tracer is not None:
             tracer.restore()
@@ -102,7 +132,7 @@ def run(cfg: dict, wl: dict, seed: int, seconds: float, device,
                 f" {prof['kernels']} device events, busy "
                 f"{prof['busy_s']:.6f} s of {prof['wall_s']:.6f} s")
         for m in metrics:
-            value = manifest.reader(m["name"]).read(rec)
+            value = readers[m["name"]].read(rec)
             if value is not None:
                 res["metrics"][m["name"]] = {"value": value,
                                              "unit": m["unit"]}

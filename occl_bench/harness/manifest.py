@@ -1,8 +1,12 @@
 """``BENCHMARK.json`` and the files it names: a configuration, a cell's
 traffic and a per-layer metric are each a file of their own, found by the
-name the manifest gives."""
+name the manifest gives; a program path (``drivers/<driver>.py``), a model
+family (``families/<family>.py``) and a plain reference
+(``reference/<reference>.py``) are found by the name a workload or a
+configuration file gives."""
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import pathlib
@@ -53,3 +57,25 @@ def reader(name: str):
 
 def metrics_for(man: dict, name: str) -> list:
     return [m for m in man["per_layer"] if reported(man, m, name)]
+
+
+def _module(kind: str, name: str):
+    if not name.isidentifier():
+        raise SystemExit(f"{kind}/{name}.py: not a module name")
+    return importlib.import_module(f"{BENCH.name}.{kind}.{name}")
+
+
+def driver(name: str):
+    """``drivers/<name>.py``: ``run(ctx) -> Outcome``."""
+    return _module("drivers", name)
+
+
+def family(name: str):
+    """``families/<name>.py``: weights, inputs, ``step_flops(cfg)``, the
+    stand-ins (``KINDS``, ``standin``) and ``tiny(cfg, wl)``."""
+    return _module("families", name)
+
+
+def reference(name: str):
+    """``reference/<name>.py``: the plain reference a configuration names."""
+    return _module("reference", name)

@@ -132,6 +132,8 @@ def analyse(events, wall_s: float, supersteps: int, outer: str = "-"):
             # the span's range; on the device timeline an annotation only
             if not _is_device(e):
                 bench.append((a, b, e.name[6:]))
+        elif e.name.startswith("occl:") and _is_device(e):
+            continue        # the program tracer's range, not device work
         elif _is_device(e):
             dev.append((a, b, e.name))
         else:

@@ -1,6 +1,7 @@
 """Tiny versions of the benchmark's configurations and cells, for CPU
-tests: the same files with the widths, batch and runtime cut so that a
-cell's whole run takes seconds on the CPU."""
+tests: the same files cut by their family's ``tiny`` so that a cell's whole
+run takes seconds on the CPU.  Every configuration and cell of
+``BENCHMARK.json`` is here, found by file."""
 from __future__ import annotations
 
 import copy
@@ -14,43 +15,51 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-VIT_CELLS = ("vit-base-dp4.occl-sync", "vit-base-dp4.overlap")
-MOE_CELLS = ("deepseek-moe-16b-ep4.overlap", "deepseek-moe-16b-ep4.barrier")
+from occl_bench.harness import manifest  # noqa: E402
+
+MAN = manifest.load()
+# The manifest's cells, then any workload file it does not list (a cell
+# kept for later: its driver stays under test).
+CELLS = tuple(w["name"] for w in MAN["workloads"])
+CELLS += tuple(sorted(p.stem for p in (BENCH / "workloads").glob("*.json")
+                      if p.stem not in CELLS))
+CONFIGS = tuple(c["name"] for c in MAN["configs"])
 
 
 def _load(rel: str) -> dict:
     return json.loads((BENCH / rel).read_text())
 
 
+def family_of(name: str):
+    """The family module of configuration ``name``."""
+    return manifest.family(_load(f"configs/{name}.json")["family"])
+
+
+def tiny(cfg_name: str, wl: dict | None = None) -> tuple[dict, dict]:
+    cfg = copy.deepcopy(_load(f"configs/{cfg_name}.json"))
+    return family_of(cfg_name).tiny(cfg, copy.deepcopy(wl or {}))
+
+
 def config(name: str) -> dict:
-    cfg = copy.deepcopy(_load(f"configs/{name}.json"))
-    if cfg["family"] == "vit":
-        cfg.update(hidden_size=64, num_attention_heads=2, head_dim=32,
-                   intermediate_size=128, num_patches=16, num_labels=10)
-        cfg["port"]["overrides"].update(
-            d_model=64, n_heads=2, n_kv_heads=2, d_head=32, d_ff=128,
-            vocab=10, vis_tokens=16)
-        cfg["deployment"].update(global_batch=8, bucket_elems=1 << 16,
-                                 slice_elems=2048, burst_slices=1)
-        # float32 products, so a sound tiny run reads rounding alone
-        cfg["port"]["overrides"]["compute_dtype"] = "float32"
-    else:
-        cfg.update(hidden_size=64, n_routed_experts=8, num_experts_per_tok=2,
-                   n_shared_experts=1, moe_intermediate_size=32)
-        cfg["port"]["overrides"].update(d_model=64, n_experts=8, top_k=2,
-                                        n_shared_experts=1, d_ff_expert=32)
-        cfg["deployment"].update(tokens_per_rank=16, slice_elems=512,
-                                 n_streams=2, overlap_ticks=4)
-    return cfg
+    return tiny(name)[0]
 
 
 def workload(name: str) -> dict:
-    wl = copy.deepcopy(_load(f"workloads/{name}.json"))
-    if "drain_iters" in wl:
-        wl["drain_iters"] = 1024
-    if wl["driver"] == "moe" and wl["mode"] == "overlap":
-        wl["warm_ticks"] = [4, 8, 16]
-    return wl
+    wl = _load(f"workloads/{name}.json")
+    return tiny(wl["config"], wl)[1]
+
+
+def training(cell: str) -> bool:
+    """Whether the cell's family trains (its reference follows steps)."""
+    return hasattr(family_of(workload(cell)["config"]), "CHECKED_STEPS")
+
+
+def first_cells() -> list:
+    """One cell of each configuration: the first the manifest lists."""
+    out = {}
+    for w in MAN["workloads"]:
+        out.setdefault(w["config"], w["name"])
+    return list(out.values())
 
 
 def run(name: str, seed: int = 7, seconds: float = 0.0, trace=False,

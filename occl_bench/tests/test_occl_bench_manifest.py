@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-import occl_bench_tiny  # noqa: F401  (src/ and the root on sys.path)
+import occl_bench_tiny as tiny  # src/ and the root on sys.path
 from occl_bench.harness import manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -22,6 +22,9 @@ CUTS = {"num_hidden_layers", "n_routed_experts", "num_local_experts",
         "vocab_size"}
 
 MAN = manifest.load()
+# Every reader file: the manifest's metrics, and any kept for a later cell.
+READERS = tuple(sorted(p.stem for p in (manifest.BENCH / "metrics")
+                       .glob("*.py")))
 
 
 def line(s: str) -> bool:
@@ -81,7 +84,11 @@ def test_every_per_layer_metric_moves_step_s_in_cells_that_report_it():
         assert manifest.metrics_for(MAN, w), w
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in MAN["per_layer"]])
+def test_every_manifest_metric_has_its_reader_file():
+    assert {m["name"] for m in MAN["per_layer"]} <= set(READERS)
+
+
+@pytest.mark.parametrize("metric", READERS)
 def test_metric_file_matches_the_manifest(metric):
     # the manifest alone gives the metric's layer, unit and cells
     assert callable(manifest.reader(metric).read)
@@ -122,11 +129,16 @@ def test_each_configuration_has_a_cell_and_its_file(cfg):
     assert line(entry["why"]) and line(entry["source"])
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in MAN["workloads"]])
+@pytest.mark.parametrize("cell", tiny.CELLS)
 def test_each_cell_file_matches_the_manifest(cell):
-    entry = next(w for w in MAN["workloads"] if w["name"] == cell)
-    assert set(entry) == {"name", "config", "traffic", "chips", "why"}
     wl = manifest.workload(cell)
+    # a workload file the manifest does not list is a cell kept for later:
+    # its own entry has to be one the manifest could take as it stands
+    entry = next((w for w in MAN["workloads"] if w["name"] == cell),
+                 {k: wl[k] for k in ("name", "config", "traffic", "chips",
+                                     "why")})
+    assert set(entry) == {"name", "config", "traffic", "chips", "why"}
+    assert entry["config"] in {c["name"] for c in MAN["configs"]}
     for k in ("name", "config", "traffic", "chips", "why"):
         assert wl[k] == entry[k], k
     assert entry["chips"] in (1, 4)
@@ -148,3 +160,21 @@ def test_files_under_paths_are_named_from_name_characters():
             rel = p.relative_to(manifest.ROOT).as_posix()
             assert PATH.match(rel), rel
     json.dumps(MAN)
+
+
+@pytest.mark.parametrize("cell", tiny.CELLS)
+def test_files_a_cell_names_are_found_by_name(cell):
+    wl = manifest.workload(cell)
+    cfg = manifest.config(MAN, wl["config"])
+    assert callable(manifest.driver(wl["driver"]).run)
+    fam = manifest.family(cfg["family"])
+    for name in ("params", "step_flops", "standin", "tiny"):
+        assert callable(getattr(fam, name)), name
+    assert "control" in fam.KINDS
+    ref = manifest.reference(cfg["reference"])
+    assert callable(ref.param_shapes)
+
+
+def test_a_name_that_is_no_module_is_refused():
+    with pytest.raises(SystemExit):
+        manifest.driver("../harness/cell")

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 import occl_bench_tiny as tiny
-from occl_bench.harness import drivers, feed
+from occl_bench.harness import manifest
+from occl_bench.harness.port import flatten, nest, port_config
 from occl_bench.reference import adamw as ref_adamw
 from occl_bench.reference import moe as ref_moe
 from occl_bench.reference import numerics
@@ -24,8 +25,9 @@ def one_thread():
 
 def vit_setup(seed=3):
     cfg = tiny.config("vit-base-dp4")
-    params = feed.vit_params(cfg, seed, "cpu")
-    batch = feed.VitFeed(cfg, seed, "cpu").batch_for(0, 1)
+    fam = manifest.family(cfg["family"])
+    params = fam.params(cfg, seed, "cpu", ref_vit)
+    batch = fam.Feed(cfg, seed, "cpu").batch_for(0, 1)
     return cfg, params, batch
 
 
@@ -33,9 +35,9 @@ def test_vit_loss_and_grads_equal_the_ports():
     from repro_torch.models import build_model
 
     cfg, params, batch = vit_setup()
-    port = build_model(drivers.port_config(cfg))
+    port = build_model(port_config(cfg))
     leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-    want = port.loss_fn(drivers.nest(leaves), batch)
+    want = port.loss_fn(nest(leaves), batch)
     gw = torch.autograd.grad(want, list(leaves.values()))
     got, gg = ref_vit.loss_and_grads(cfg, params, batch["patches"],
                                      batch["labels"])
@@ -46,11 +48,10 @@ def test_vit_loss_and_grads_equal_the_ports():
 
 
 def test_vit_published_widths_build_in_the_port():
-    cfg = ref_vit.param_shapes(tiny._load("configs/vit-base-dp4.json"))
-    assert cfg["layers/attn/wq"] == (1, 768, 768)
-    drivers._check_port_tree(tiny._load("configs/vit-base-dp4.json"),
-                             drivers.port_config(
-                                 tiny._load("configs/vit-base-dp4.json")))
+    full = tiny._load("configs/vit-base-dp4.json")
+    assert ref_vit.param_shapes(full)["layers/attn/wq"] == (1, 768, 768)
+    manifest.family(full["family"]).check_port_tree(full, port_config(full),
+                                                    ref_vit)
 
 
 def test_adamw_equals_the_ports_over_three_steps():
@@ -62,18 +63,17 @@ def test_adamw_equals_the_ports_over_three_steps():
     p_ref = dict(params)
     m_ref = {k: torch.zeros_like(v) for k, v in params.items()}
     v_ref = {k: torch.zeros_like(v) for k, v in params.items()}
-    p_port, m_port, v_port = (drivers.nest(dict(p_ref)),
-                              drivers.nest(dict(m_ref)),
-                              drivers.nest(dict(v_ref)))
+    p_port, m_port, v_port = (nest(dict(p_ref)), nest(dict(m_ref)),
+                              nest(dict(v_ref)))
     for t in range(3):
         grads = {k: torch.randn(v.shape, generator=g) for k, v in
                  params.items()}
         p_ref, m_ref, v_ref = ref_adamw.step(opt, p_ref, grads, m_ref,
                                              v_ref, t)
         p_port, m_port, v_port, _ = adamw_update(
-            AdamWConfig(**opt), p_port, drivers.nest(grads), m_port,
+            AdamWConfig(**opt), p_port, nest(grads), m_port,
             v_port, torch.tensor(t, dtype=torch.int32))
-    got = drivers.flatten(p_port)
+    got = flatten(p_port)
     for k in p_ref:
         torch.testing.assert_close(got[k], p_ref[k], rtol=1e-6, atol=1e-9)
 
@@ -90,14 +90,13 @@ def test_moe_layer_equals_the_ports_expert_parallel_reference(seed):
     from repro_torch.train.occl_moe import ep_forward_ref
 
     cfg = tiny.config("deepseek-moe-16b-ep4")
-    port_cfg = drivers.port_config(cfg)
-    dep = cfg["deployment"]
-    cap = ref_moe.capacity(dep["tokens_per_rank"], cfg["num_experts_per_tok"],
-                           cfg["n_routed_experts"], cfg["capacity_factor"])
-    params = feed.moe_params(cfg, seed, "cpu")
-    xs = feed.moe_tokens(cfg, seed, 0, "cpu")
+    fam = manifest.family(cfg["family"])
+    port_cfg = port_config(cfg)
+    cap = fam.capacity(cfg, ref_moe)
+    params = fam.params(cfg, seed, "cpu", ref_moe)
+    xs = fam.tokens(cfg, seed, 0, "cpu")
     want = ep_forward_ref(port_cfg, params, xs, cap=cap)
-    got = drivers.moe_reference(cfg, params, xs, cap)
+    got = fam.reference_outputs(cfg, params, xs, cap, ref_moe)
     for g, w in zip(got, want):
         assert float((g - w.double()).abs().max()) <= 1e-6 * float(
             w.abs().max())
@@ -128,10 +127,34 @@ def test_fp8_rounds_to_e4m3_under_one_scale():
 
 def test_port_widths_are_unchanged_by_the_tiny_configs():
     full = tiny._load("configs/deepseek-moe-16b-ep4.json")
-    port = drivers.port_config(full)
+    port = port_config(full)
     assert (port.d_model, port.n_experts, port.top_k, port.n_shared_experts,
             port.d_ff_expert, port.capacity_factor) == (
         full["hidden_size"], full["n_routed_experts"],
         full["num_experts_per_tok"], full["n_shared_experts"],
         full["moe_intermediate_size"], full["capacity_factor"])
     assert dataclasses.is_dataclass(port)
+
+
+@pytest.mark.parametrize("name", tiny.CONFIGS)
+def test_weights_follow_the_named_references_shapes_and_the_seed(name):
+    cfg = tiny.config(name)
+    fam = manifest.family(cfg["family"])
+    ref = manifest.reference(cfg["reference"])
+    a, b = (fam.params(cfg, 5, "cpu", ref) for _ in range(2))
+    c = fam.params(cfg, 6, "cpu", ref)
+    assert {k: tuple(v.shape) for k, v in a.items()} == \
+        {k: tuple(s) for k, s in ref.param_shapes(cfg).items()}
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not all(torch.equal(a[k], c[k]) for k in a)
+
+
+@pytest.mark.parametrize("cell", tiny.first_cells())
+def test_control_reads_a_finite_number_on_each_compared_name(cell):
+    from occl_bench.harness import standins
+
+    wl = tiny.workload(cell)
+    cfg = tiny.config(wl["config"])
+    readings = standins.read(cfg, wl, 3, "cpu", "control")
+    assert set(wl["limits"]) <= set(readings)
+    assert all(v == v and abs(v) < float("inf") for v in readings.values())

@@ -23,6 +23,8 @@ def loaded_after(code: str) -> set:
 def test_harness_and_the_port_paths_it_drives_load_no_jax():
     top = loaded_after(
         "import occl_bench.harness.cell, occl_bench.harness.standins\n"
+        "import occl_bench.drivers.vit_occl_sync, occl_bench.drivers.moe\n"
+        "import occl_bench.drivers.vit_overlap\n"
         "import repro_torch.launch.train, repro_torch.train.occl_moe\n"
         "import repro_torch.train.step, repro_torch.train.occl_sync\n"
         "import repro_torch.core.device_api, repro_torch.core.daemon\n"
@@ -37,6 +39,8 @@ def test_reference_loads_nothing_of_the_program():
     top = loaded_after("import occl_bench.reference.vit, "
                        "occl_bench.reference.moe, "
                        "occl_bench.reference.adamw, "
+                       "occl_bench.families.vit, "
+                       "occl_bench.families.moe, "
                        "occl_bench.roofline.flops, "
                        "occl_bench.roofline.peaks")
     assert not top & (FORBIDDEN | {"repro_torch"}), top

@@ -6,7 +6,6 @@ import pytest
 import occl_bench_tiny  # noqa: F401  (src/ and the root on sys.path)
 from occl_bench.harness import manifest, profile
 
-MAN = manifest.load()
 
 
 class Event:
@@ -31,6 +30,18 @@ def test_busy_is_the_union_and_annotations_are_not_device_work():
     assert got["burst_mean_s"] == pytest.approx(3e-6)
     assert dict(got["idle_gaps"]) == pytest.approx(
         {"drive > cudaGraphLaunch": 8e-6, "drive > aten::item": 6e-6})
+
+
+def test_program_tracer_ranges_are_not_device_work():
+    events = [Event(0, 10, "k_a", True),
+              Event(0, 30, "occl:occl.chunk", True),
+              Event(0, 30, "occl:occl.chunk", False),
+              Event(20, 24, "k_b", True)]
+    got = profile.analyse(events, 30e-6, 1)
+    assert got["busy_s"] == pytest.approx(14e-6)
+    assert got["kernels"] == 2
+    assert dict(got["idle_gaps"]) == pytest.approx(
+        {"- > occl:occl.chunk": 10e-6})
 
 
 def test_no_device_event_reads_nothing():
@@ -61,7 +72,8 @@ EXPECTED = {"supersteps_per_step": 10000.0,
             "step_mfu": 100 * 1.2e12 / 11.0 / 989e12}
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in MAN["per_layer"]])
+@pytest.mark.parametrize("metric", sorted(
+    p.stem for p in (manifest.BENCH / "metrics").glob("*.py")))
 def test_reader_reads_its_record(metric):
     assert manifest.reader(metric).read(record(True)) == pytest.approx(
         EXPECTED[metric])
@@ -77,19 +89,40 @@ def test_reader_without_a_trace_reads_nothing(metric):
 class Runtime:
     """Counters as ``OcclRuntime.stats()`` gives them."""
 
+    def __init__(self):
+        self.calls = 0
+
     def stats(self):
         import numpy as np
 
+        self.calls += 1
+        n = self.calls
         z = np.zeros(4, np.int64)
-        return {"supersteps": z, "overlap_supersteps": z, "preempts": z}
+        return {"supersteps": np.arange(4) * n, "overlap_supersteps": z,
+                "preempts": np.full((4, 2), n), "staging_read_bytes": 10 * n,
+                "burst_slices": 8, "graph_kernel_nodes": {16: 49},
+                "launch_history": [n], "lane_caps": np.ones(3, bool)}
 
 
 @pytest.mark.parametrize("min_steps", [1, 2, 3])
 def test_window_of_no_length_holds_its_least_steps(min_steps):
-    from occl_bench.harness import drivers
+    from occl_bench.harness.window import Window
 
-    w = drivers.Window(0.0, "cpu")
+    w = Window(0.0, "cpu")
     w.start(Runtime(), min_steps)
     done = [w.step_done() for _ in range(min_steps)]
     assert done == [False] * (min_steps - 1) + [True]
     assert w.steps == min_steps and w.window_s >= 0
+
+
+def test_window_counts_every_scalar_counter():
+    from occl_bench.harness.window import Window
+
+    w = Window(0.0, "cpu")
+    w.start(Runtime())
+    assert w.step_done()
+    # clocks by their largest rank, arrays summed, scalars as they are;
+    # maps, lists and flags are no counters
+    assert w.deltas() == {"supersteps": 3, "overlap_supersteps": 0,
+                          "preempts": 8, "staging_read_bytes": 10,
+                          "burst_slices": 0}
